@@ -1,0 +1,104 @@
+"""Deterministic image pipeline (numpy-only copy of ``repro.data.pipeline``).
+
+- ``ImagePipeline``: batches over the synthetic MNIST arrays, with the
+  paper's "workers pick the next image" global-queue semantics (each worker
+  takes every k-th sample — no static partitioning).
+- Exact resume from a step counter: the pipeline is a pure function of it.
+- Stacked **superstep** batches — ``superstep_at(step, k)`` returns a
+  (k, B, ...) dict whose slice ``i`` is bit-identical to
+  ``batch_at(step + i)``.
+
+Every draw goes through ``np.random.SeedSequence`` exactly as the JAX
+package's pipeline does, so both give the same batches bit for bit
+(tests/test_torch_data.py).  ``TokenPipeline`` comes with the LM slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+def _stack_batches(batches):
+    """Stack a list of same-structure dict batches along a new axis 0."""
+    return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def worker_slice(stacked: dict, batch: int, n_workers: int, worker: int):
+    """Worker w's shard of a stacked (K, B, ...) superstep batch: the
+    contiguous lane range [w*B/N, (w+1)*B/N) of every step.  Concatenating
+    the shards over w along axis 1 reconstructs the stacked batch exactly,
+    so N workers consume the SAME global sample sequence as one."""
+    if not 0 <= worker < n_workers:
+        raise ValueError(f"worker {worker} out of range [0, {n_workers})")
+    if batch % n_workers != 0:
+        raise ValueError(
+            f"global batch {batch} must be divisible by n_workers="
+            f"{n_workers} for equal worker shards")
+    per = batch // n_workers
+    lo = worker * per
+    return {k: v[:, lo:lo + per] for k, v in stacked.items()}
+
+
+@dataclasses.dataclass
+class ImagePipeline:
+    images: np.ndarray
+    labels: np.ndarray
+    batch: int
+    seed: int = 0
+    #: "iid"   — each batch is an independent uniform draw;
+    #: "queue" — the paper's shared-queue semantics: per epoch one global
+    #:           permutation is the queue and the step-t batch is its
+    #:           contiguous chunk queue[t*B:(t+1)*B].
+    sample_mode: str = "iid"
+    # (epoch, permutation) pairs — a recomputation cache only; two entries
+    # because a batch can straddle an epoch boundary
+    _epoch_cache: list | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    def batch_at(self, step: int):
+        if self.sample_mode == "queue":
+            return self.queue_batch_at(step)
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, step]))
+        idx = rng.integers(0, len(self.images), size=self.batch)
+        return {"images": self.images[idx], "labels": self.labels[idx]}
+
+    def _queue_perm(self, epoch: int) -> np.ndarray:
+        for e, perm in self._epoch_cache or ():
+            if e == epoch:
+                return perm
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, epoch]))
+        perm = rng.permutation(len(self.images))
+        self._epoch_cache = ([(epoch, perm)]
+                             + list(self._epoch_cache or ()))[:2]
+        return perm
+
+    def queue_batch_at(self, step: int):
+        """The shared queue is the infinite concatenation of per-epoch
+        permutations, and the step-t batch is its contiguous chunk
+        [t*B, (t+1)*B).  A batch may straddle an epoch boundary, so every
+        epoch covers every sample exactly once."""
+        n = len(self.images)
+        epoch, off = divmod(step * self.batch, n)
+        chunks, need = [], self.batch
+        while need > 0:
+            perm = self._queue_perm(epoch)
+            take = min(need, n - off)
+            chunks.append(perm[off:off + take])
+            need -= take
+            epoch, off = epoch + 1, 0
+        idx = np.concatenate(chunks) if len(chunks) > 1 else chunks[0]
+        return {"images": self.images[idx], "labels": self.labels[idx]}
+
+    def superstep_at(self, step: int, k: int):
+        """Stacked (k, B, H, W, C) batch covering steps [step, step + k)."""
+        return _stack_batches([self.batch_at(step + i) for i in range(k)])
+
+    def worker_superstep_at(self, step: int, k: int, n_workers: int,
+                            worker: int):
+        """Worker ``worker``'s (k, B/N, H, W, C) shard of
+        ``superstep_at(step, k)``."""
+        return worker_slice(self.superstep_at(step, k), self.batch,
+                            n_workers, worker)

@@ -1,0 +1,81 @@
+"""Model API of the port (counterpart of ``repro.models.api``, cnn part).
+
+    ops = get_ops(cfg)                       # device="cuda" by default
+    params = ops.init(torch.Generator().manual_seed(0))
+    loss, metrics = ops.loss(params, batch)  # batch: numpy or tensors
+    logits = ops.forward(params, images)
+    spec = ops.bucket_spec()                 # ordered ParamBuckets
+    shapes = ops.abstract_params()           # ``meta`` tensors
+
+``get_ops`` raises when asked for CUDA on a host without a card: the port
+never falls back to the CPU on its own.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.core.types import ArchConfig
+from repro_torch.models import cnn
+from repro_torch.models import layers as L
+
+
+@dataclasses.dataclass
+class ModelOps:
+    cfg: ArchConfig
+    device: torch.device
+    init: Callable
+    abstract_params: Callable
+    loss: Callable
+    forward: Callable
+    bucket_spec: Callable
+
+
+def validate_bucket_spec(spec, abstract_params: dict) -> None:
+    """Raise unless ``spec`` is an ordered exact disjoint cover of the
+    param tree's top-level keys."""
+    seen: list = []
+    for b in spec:
+        for k in b.keys:
+            if k in seen:
+                raise ValueError(
+                    f"bucket {b.name!r} overlaps: key {k!r} already owned")
+            if k not in abstract_params:
+                raise ValueError(
+                    f"bucket {b.name!r} names unknown param key {k!r}")
+            seen.append(k)
+    missing = set(abstract_params) - set(seen)
+    if missing:
+        raise ValueError(
+            f"bucket_spec misses param keys {sorted(missing)}: buckets must "
+            f"exactly cover the param tree")
+    if [b.index for b in spec] != list(range(len(spec))):
+        raise ValueError("bucket indices must be 0..n-1 in production order")
+
+
+def get_ops(cfg: ArchConfig, device="cuda") -> ModelOps:
+    if cfg.family != "cnn":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not yet ported to repro_torch")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on CUDA by default and this host has no CUDA "
+            "device; pass device='cpu' to run the plain PyTorch path")
+    dtype = getattr(torch, cfg.param_dtype)
+
+    def to_device(batch):
+        return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+    return ModelOps(
+        cfg=cfg, device=device,
+        init=lambda generator: cnn.build_params(
+            cfg, L.InitFactory(generator, dtype, device)),
+        abstract_params=lambda: cnn.build_params(cfg, L.ShapeFactory(dtype)),
+        loss=lambda params, batch: cnn.loss_fn(params, to_device(batch), cfg),
+        forward=lambda params, images: cnn.forward(
+            params, torch.as_tensor(images, device=device), cfg),
+        bucket_spec=lambda: cnn.bucket_spec(cfg),
+    )

@@ -1,0 +1,105 @@
+"""Guards of the port's boundaries: it imports nothing of JAX, it runs on
+CUDA unless asked for the CPU, the CPU path launches no kernel, and the
+build refuses to run without nvcc."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import configs
+from repro_torch.data.mnist import make_dataset
+from repro_torch.kernels import build
+from repro_torch.kernels import ops as kops
+from repro_torch.models import api
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_port_imports_neither_jax_nor_repro(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
+
+
+def test_get_ops_without_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.get_ops(configs.get("chaos-small"))
+    assert api.get_ops(configs.get("chaos-small"), device="cpu").device == \
+        torch.device("cpu")
+
+
+@pytest.mark.parametrize("name", ["chaos-small", "chaos-large"])
+def test_cpu_path_leaves_every_launch_count_at_zero(name):
+    kops.reset_launch_counts()
+    ops = api.get_ops(configs.get(name), device="cpu")
+    params = ops.init(torch.Generator().manual_seed(0))
+    images, labels = make_dataset(4, seed=0)
+    loss, m = ops.loss(params, {"images": images, "labels": labels})
+    assert np.isfinite(loss.item())
+    assert kops.launch_counts() == {"conv2d_fwd": 0, "maxpool2d_fwd": 0,
+                                    "fc_fwd": 0, "softmax_xent_fwd": 0}
+
+
+def test_build_refuses_to_run_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(build, "CUDA_NVCC", str(tmp_path / "cuda/bin/nvcc"))
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build()
+    assert not (tmp_path / "build").exists()
+
+
+def test_build_dir_is_keyed_by_the_sources(monkeypatch, tmp_path):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = build.build_dir()
+    assert before == build.build_dir()
+    (csrc / "pool.cu").write_text((csrc / "pool.cu").read_text() + "\n")
+    assert build.build_dir() != before
+    assert [p.name for p in build.sources()] == [
+        "conv2d.cu", "errors.cu", "fc.cu", "pool.cu", "softmax_xent.cu"]
+
+
+def test_c_api_names_every_entry_point_of_the_sources():
+    defined = set()
+    for src in build.sources():
+        for line in src.read_text().splitlines():
+            if line.startswith('extern "C"'):
+                defined.add(line.split("(")[0].split()[-1].lstrip("*"))
+    assert defined == set(build.C_API) | {"repro_cuda_error_string"}
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    script = ROOT / "chip_smoke.py"
+    if alone:  # a directory that holds chip_smoke.py and nothing else
+        script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
