@@ -8,21 +8,31 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
 1. Device and build: the card's name and power limit, TF32 off for the
    library yardsticks, the kernels built from ``src/repro_torch/kernels/
    csrc`` (build time printed).
-2. Per-kernel parity: each of the four kernels against its plain PyTorch
+2. Per-kernel parity: each of the seven kernels against its plain PyTorch
    version on the card, at chaos-large's B=256 shapes plus edge shapes
    (a batch that is no block multiple, a cropped pool tail, tied maxima
-   from saturated tanh, ragged FC tiles, more classes than a warp).
-3. The main path: chaos-large evaluated through ``get_ops(...).loss`` on
+   from saturated tanh, ragged FC tiles, more classes than a warp, a conv
+   with uneven dx row blocks and no tanh).
+3. The eval path: chaos-large evaluated through ``get_ops(...).loss`` on
    ``cuda`` over 8 shared-queue batches of 256, with every launch count set
    to 0 just before and read just after (exactly 3 conv + 2 pool + 2 fc +
    1 softmax-xent launches per batch), held against the port's CPU plain
    path on the same params and batches; chaos-small and chaos-medium once.
-4. Times: each kernel at the main path's shapes against its plain version,
-   one PyTorch library call for the same function (a yardstick the port
-   never calls) and its bound on the card, by CUDA events, median of 21
-   samples taken in alternating turns after warm-up; and the end-to-end
-   eval time per batch.
-5. Result lines: ``nvidia-smi``'s name and power limit, one JSON object of
+4. The training path: chaos-large trained through ``init_train_state`` and
+   ``make_train_step`` / ``make_superstep`` on ``cuda`` for 8 steps of 256
+   shared-queue samples under bsp, chaos τ=1 (as one superstep of 8) and
+   layerwise bsp, counts from 0 around each run (exactly 15 launches per
+   step: 3 conv + 2 pool + 2 fc + 1 softmax-xent forward, 3 + 2 + 2
+   backward), the losses held against the same steps on the CPU plain
+   path from the same state, two bsp runs bit-identical, layerwise bsp
+   bit-equal to batched bsp; chaos-small and chaos-medium one step each.
+5. Times: each kernel at the training step's shapes against its plain
+   version, one PyTorch library call for the same function (a yardstick
+   the port never calls) and its bound on the card, by CUDA events,
+   median of 21 samples taken in alternating turns after warm-up; the
+   eval time per batch, the optimizer's time and the training step's time
+   at B=8 and B=256.
+6. Result lines: ``nvidia-smi``'s name and power limit, one JSON object of
    the kernels, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -44,8 +54,18 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 BATCH = 256
 EVAL_BATCHES = 8
+TRAIN_STEPS = 8
+#: Kernel against plain version, (atol, rtol) on every output element.  The
+#: backward kernels' dw and db are held instead to max |diff| <=
+#: DW_REL * max |plain|: sums over up to 173k products in another order.
 TOL = {"conv2d_fwd": (1e-5, 1e-4), "maxpool2d_fwd": (0.0, 0.0),
-       "fc_fwd": (1e-5, 1e-4), "softmax_xent_fwd": (1e-6, 0.0)}
+       "fc_fwd": (1e-5, 1e-4), "softmax_xent_fwd": (1e-6, 0.0),
+       "conv2d_bwd_fused": (1e-5, 1e-4), "maxpool2d_bwd": (0.0, 0.0),
+       "fc_bwd_fused": (1e-5, 1e-4)}
+DW_REL = 1e-4
+#: Training losses on the card against the CPU plain path from the same
+#: state: fp32 sums in another order, carried through 8 SGD steps.
+TRAIN_LOSS_ATOL = 1e-4
 SOURCES = {
     "conv2d_fwd": ("src/repro_torch/kernels/csrc/conv2d.cu",
                    "src/repro/kernels/conv2d.py:92"),
@@ -55,6 +75,12 @@ SOURCES = {
                "src/repro/kernels/fc.py:52"),
     "softmax_xent_fwd": ("src/repro_torch/kernels/csrc/softmax_xent.cu",
                          "src/repro/kernels/fc.py:187"),
+    "conv2d_bwd_fused": ("src/repro_torch/kernels/csrc/conv2d_bwd.cu",
+                         "src/repro/kernels/conv2d.py:197"),
+    "maxpool2d_bwd": ("src/repro_torch/kernels/csrc/pool_bwd.cu",
+                      "src/repro/kernels/pool.py:67"),
+    "fc_bwd_fused": ("src/repro_torch/kernels/csrc/fc_bwd.cu",
+                     "src/repro/kernels/fc.py:122"),
 }
 #: Launches of one chaos-large eval batch (its 1x1 pool issues none).
 LARGE_PER_BATCH = {"conv2d_fwd": 3, "maxpool2d_fwd": 2, "fc_fwd": 2,
@@ -62,6 +88,12 @@ LARGE_PER_BATCH = {"conv2d_fwd": 3, "maxpool2d_fwd": 2, "fc_fwd": 2,
 #: chaos-small and chaos-medium: two convs, two pools, two FCs.
 SMALL_PER_BATCH = {"conv2d_fwd": 2, "maxpool2d_fwd": 2, "fc_fwd": 2,
                    "softmax_xent_fwd": 1}
+#: Launches of one training step: the forward's, and one backward launch
+#: per conv, pool and FC layer (softmax-xent's backward launches nothing).
+LARGE_PER_STEP = {**LARGE_PER_BATCH, "conv2d_bwd_fused": 3,
+                  "maxpool2d_bwd": 2, "fc_bwd_fused": 2}
+SMALL_PER_STEP = {**SMALL_PER_BATCH, "conv2d_bwd_fused": 2,
+                  "maxpool2d_bwd": 2, "fc_bwd_fused": 2}
 
 
 def phase(name):
@@ -132,6 +164,49 @@ def parity_cases(torch, K, P, FC):
                       lambda l=logits, y=labels: FC.softmax_xent_fwd(l, y),
                       lambda l=logits, y=labels:
                       FC.softmax_xent_fwd_plain(l, y)))
+    for (B, H, Cin, Kk, Cout, tanh) in [
+            (BATCH, 29, 1, 4, 20, True),     # chaos-large conv0
+            (BATCH, 26, 20, 5, 60, True),    # conv2, 13 dx row blocks
+            (BATCH, 11, 60, 6, 100, True),   # conv4, 100 channels
+            (3, 29, 1, 4, 5, True),          # chaos-small conv0, B=3
+            (3, 41, 20, 5, 7, False),        # no tanh, Cout no multiple of 4
+            (4, 14, 6, 3, 33, True)]:        # Cin no multiple of 4, 2 Cout tiles
+        Ho = H - Kk + 1
+        x = u(B, H, H, Cin)
+        w = n(Kk, Kk, Cin, Cout, scale=1 / math.sqrt(Kk * Kk * Cin))
+        y = u(B, Ho, Ho, Cout) if tanh else None
+        dy = n(B, Ho, Ho, Cout)
+        cases.append(("conv2d_bwd_fused", f"x{tuple(x.shape)} "
+                      f"w{tuple(w.shape)} tanh={tanh}",
+                      lambda x=x, dy=dy, w=w, y=y:
+                      K.conv2d_bwd_fused(x, dy, w, y),
+                      lambda x=x, dy=dy, w=w, y=y:
+                      K.conv2d_bwd_fused_plain(x, dy, w, y)))
+    for (x, k, what) in [(u(BATCH, 22, 22, 60), 2, "chaos-large pool3"),
+                         (u(BATCH, 6, 6, 100), 2, "chaos-large pool5"),
+                         (u(3, 7, 7, 5), 2, "cropped tail"),
+                         (torch.tanh(n(4, 9, 9, 10, scale=20.0)), 3,
+                          "tied maxima"),
+                         (torch.zeros(2, 6, 6, 3, device="cuda"), 2,
+                          "all-zero windows")]:
+        y = P.maxpool2d_fwd_plain(x, k)
+        dy = n(*y.shape)
+        cases.append(("maxpool2d_bwd", f"{what} x{tuple(x.shape)} k={k}",
+                      lambda x=x, y=y, dy=dy, k=k: P.maxpool2d_bwd(x, y, dy, k),
+                      lambda x=x, y=y, dy=dy, k=k:
+                      P.maxpool2d_bwd_plain(x, y, dy, k)))
+    for (B, Din, Dout, tanh) in [(BATCH, 900, 150, True),
+                                 (BATCH, 150, 10, False),
+                                 (3, 37, 19, True)]:
+        x = u(B, Din)
+        w = n(Din, Dout, scale=1 / math.sqrt(Din))
+        y = u(B, Dout) if tanh else None
+        dy = n(B, Dout)
+        cases.append(("fc_bwd_fused", f"x{tuple(x.shape)} w{tuple(w.shape)} "
+                      f"tanh={tanh}",
+                      lambda x=x, dy=dy, w=w, y=y: FC.fc_bwd_fused(x, dy, w, y),
+                      lambda x=x, dy=dy, w=w, y=y:
+                      FC.fc_bwd_fused_plain(x, dy, w, y)))
     return cases
 
 
@@ -144,7 +219,7 @@ def check_parity(torch, K, P, FC) -> dict:
         want = want if isinstance(want, tuple) else (want,)
         atol, rtol = TOL[name]
         err = 0.0
-        for a, b in zip(got, want):
+        for i, (a, b) in enumerate(zip(got, want)):
             if a.shape != b.shape:
                 raise AssertionError(f"{name} {label}: shape {tuple(a.shape)}"
                                      f" != plain {tuple(b.shape)}")
@@ -152,13 +227,19 @@ def check_parity(torch, K, P, FC) -> dict:
                 raise AssertionError(f"{name} {label}: non-finite output")
             diff = (a - b).abs()
             err = max(err, diff.max().item())
-            if not bool((diff <= atol + rtol * b.abs()).all()):
+            if name.endswith("_bwd_fused") and i > 0:  # dw, db
+                limit = DW_REL * b.abs().max().item()
+                if diff.max().item() > limit:
+                    raise AssertionError(
+                        f"{name} {label}: output {i} max |kernel - plain| = "
+                        f"{diff.max().item():.3e} over {DW_REL} * max |plain|"
+                        f" = {limit:.3e}")
+            elif not bool((diff <= atol + rtol * b.abs()).all()):
                 raise AssertionError(
                     f"{name} {label}: max |kernel - plain| = "
                     f"{diff.max().item():.3e} over atol {atol} rtol {rtol}")
         worst[name] = max(worst[name], err)
-        print(f"parity {name:17s} {label}: max_abs_err={err:.3e} "
-              f"(atol {atol}, rtol {rtol})", flush=True)
+        print(f"parity {name:17s} {label}: max_abs_err={err:.3e}", flush=True)
     return worst
 
 
@@ -198,7 +279,7 @@ def run_net(torch, kops, launch_trace, name, per_batch, batches_np):
     seconds = time.perf_counter() - t0
     counts = kops.launch_counts()
 
-    want = {k: v * len(batches) for k, v in per_batch.items()}
+    want = {k: per_batch.get(k, 0) * len(batches) for k in counts}
     if counts != want:
         raise AssertionError(f"{name}: launches {counts}, expected {want}")
     for t in traces:
@@ -235,7 +316,130 @@ def run_net(torch, kops, launch_trace, name, per_batch, batches_np):
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: times
+# Phase 4: the training path
+# ---------------------------------------------------------------------------
+def train_run(torch, kops, launch_trace, cfg, sync, state_np, batches_np,
+              device, per_step=None, superstep=False):
+    """Train from ``state_np`` on ``device`` over ``batches_np``, one step
+    per batch or one superstep over all of them; with ``per_step``, counts
+    are set to 0 just before and checked just after.  Returns (state,
+    losses, counts)."""
+    from repro_torch import bridge
+    from repro_torch.train.step import make_superstep, make_train_step
+
+    state = bridge.state_from_numpy(state_np, device)
+    batches = [{k: torch.as_tensor(v, device=device) for k, v in b.items()}
+               for b in batches_np]
+    if superstep:
+        fn = make_superstep(cfg, sync, device=device)
+        stacked = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    else:
+        step = make_train_step(cfg, sync, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    traces = []
+    if superstep:
+        with launch_trace() as trace:
+            state, m = fn(state, stacked)
+        traces.append(list(trace))
+        losses = m["loss"]
+    else:
+        losses = []
+        for b in batches:
+            with launch_trace() as trace:
+                state, m = step(state, b)
+            traces.append(list(trace))
+            losses.append(m["loss"])
+        losses = torch.stack(losses)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    if per_step is not None:
+        n = len(batches)
+        want = {k: per_step.get(k, 0) * n for k in counts}
+        if counts != want:
+            raise AssertionError(f"{cfg.name} {sync}: launches {counts}, "
+                                 f"expected {want}")
+        steps_per_call = n // len(traces)
+        for t in traces:
+            if len(t) != sum(per_step.values()) * steps_per_call:
+                raise AssertionError(f"{cfg.name}: one call launched {t}")
+    losses = losses.tolist()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{cfg.name} {sync}: non-finite losses {losses}")
+    return state, losses, counts
+
+
+def params_equal(torch, a, b) -> bool:
+    return all(torch.equal(a[k][kk], b[k][kk]) for k in a for kk in a[k])
+
+
+def check_training(torch, kops, launch_trace, batches_np):
+    """Phase 4: returns the bsp run's launch counts."""
+    from repro_torch import bridge
+    from repro_torch.configs import get
+    from repro_torch.core.chaos import SyncConfig
+    from repro_torch.train.step import init_train_state
+
+    cfg = get("chaos-large")
+    runs = {}
+    for label, sync, superstep in [
+            ("bsp", SyncConfig("bsp"), False),
+            ("chaos tau=1 (one superstep of 8)",
+             SyncConfig("chaos", staleness=1), True),
+            ("layerwise bsp", SyncConfig("bsp", layerwise=True), False)]:
+        state_np = bridge.state_to_numpy(init_train_state(
+            cfg, torch.Generator().manual_seed(0), sync, device="cuda"))
+        t0 = time.perf_counter()
+        state, losses, counts = train_run(
+            torch, kops, launch_trace, cfg, sync, state_np, batches_np,
+            "cuda", LARGE_PER_STEP, superstep)
+        seconds = time.perf_counter() - t0
+        _, cpu_losses, _ = train_run(torch, kops, launch_trace, cfg, sync,
+                                     state_np, batches_np, "cpu",
+                                     superstep=superstep)
+        d = max(abs(x - y) for x, y in zip(losses, cpu_losses))
+        print(f"train chaos-large {label}: {len(batches_np)} steps of "
+              f"{BATCH}, losses {losses} (CPU plain path {cpu_losses}, max "
+              f"|diff| {d:.3e}), launches {counts}, first run "
+              f"{seconds:.3f} s", flush=True)
+        if d > TRAIN_LOSS_ATOL:
+            raise AssertionError(f"{label}: card and CPU losses differ by "
+                                 f"{d:.3e} > {TRAIN_LOSS_ATOL}")
+        if losses[-1] >= losses[0] and label == "bsp":
+            raise AssertionError(f"bsp losses do not fall: {losses}")
+        runs[label] = (state_np, state, losses, counts)
+
+    bsp_np, bsp_state, bsp_losses, bsp_counts = runs["bsp"]
+    again, again_losses, _ = train_run(
+        torch, kops, launch_trace, cfg, SyncConfig("bsp"), bsp_np,
+        batches_np, "cuda", LARGE_PER_STEP)
+    if not (params_equal(torch, again["params"], bsp_state["params"])
+            and again_losses == bsp_losses):
+        raise AssertionError("two bsp runs from one state differ")
+    _, lw_state, lw_losses, _ = runs["layerwise bsp"]
+    if not (params_equal(torch, lw_state["params"], bsp_state["params"])
+            and lw_losses == bsp_losses):
+        raise AssertionError("layerwise bsp is not bit-equal to bsp")
+    print("train chaos-large: two bsp runs bit-identical; layerwise bsp "
+          "bit-equal to batched bsp", flush=True)
+
+    for name in ("chaos-small", "chaos-medium"):
+        small = get(name)
+        sync = SyncConfig("bsp")
+        state_np = bridge.state_to_numpy(init_train_state(
+            small, torch.Generator().manual_seed(0), sync, device="cuda"))
+        _, losses, counts = train_run(torch, kops, launch_trace, small, sync,
+                                      state_np, batches_np[:1], "cuda",
+                                      SMALL_PER_STEP)
+        print(f"train {name}: one step, loss {losses[0]:.6f}, launches "
+              f"{counts}", flush=True)
+    return bsp_counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: times
 # ---------------------------------------------------------------------------
 def time_turns(torch, fns: dict, reps: int = 21, inner: int = 10) -> dict:
     """Median ms per call of each fn, CUDA events around ``inner`` calls,
@@ -323,6 +527,140 @@ def main_path_calls(torch, F, K, P, FC, cfg, params, batch):
     return calls
 
 
+def backward_calls(torch, F, K, P, FC, cfg, params, batch):
+    """Every backward kernel call of one training step at the main path's
+    shapes (the forward's activations, an upstream gradient from a seed),
+    with its plain version, the library yardstick, and its operations and
+    bytes."""
+    from repro_torch.models.cnn import _layer_fns, _trace_shapes
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    calls = []
+    with torch.inference_mode():
+        x = batch["images"]
+        acts = [x]
+        for name, fn in _layer_fns(cfg):
+            x = fn(x) if name is None else fn(params[name], x)
+            acts.append(x)
+        layers = [(kind, k, i) for i, (kind, k, *_r) in
+                  enumerate(_trace_shapes(cfg)) if kind != "pool" or k > 1]
+        last = len(_trace_shapes(cfg)) - 1
+        for (kind, k, i), xi, yi in zip(layers, acts[:-1], acts[1:]):
+            dy = torch.randn(yi.shape, generator=g, device="cuda")
+            if kind == "conv":
+                w = params[f"conv{i}"]["w"]
+                dz = dy * (1.0 - yi * yi)
+                xn = xi.permute(0, 3, 1, 2).contiguous()
+                wn = w.permute(3, 2, 0, 1).contiguous()
+                dzn = dz.permute(0, 3, 1, 2).contiguous()
+                B, Ho, Wo, Cout = yi.shape
+                Kk, _, Cin, _ = w.shape
+                fwd = 2 * B * Ho * Wo * Cout * Kk * Kk * Cin
+                calls.append((
+                    "conv2d_bwd_fused", f"x{tuple(xi.shape)} w{tuple(w.shape)}",
+                    lambda x=xi, dy=dy, w=w, y=yi: K.conv2d_bwd_fused(x, dy, w, y),
+                    lambda x=xi, dy=dy, w=w, y=yi:
+                    K.conv2d_bwd_fused_plain(x, dy, w, y),
+                    lambda xn=xn, wn=wn, dzn=dzn: (
+                        torch.nn.grad.conv2d_input(xn.shape, wn, dzn),
+                        torch.nn.grad.conv2d_weight(xn, wn.shape, dzn)),
+                    2 * fwd + 4 * dy.numel(),
+                    4 * (2 * xi.numel() + 2 * dy.numel() + 2 * w.numel()
+                         + Cout)))
+            elif kind == "pool":
+                xn = xi.permute(0, 3, 1, 2).contiguous()
+                _, idx = F.max_pool2d(xn, k, return_indices=True)
+                dyn = dy.permute(0, 3, 1, 2).contiguous()
+                calls.append((
+                    "maxpool2d_bwd", f"x{tuple(xi.shape)} k={k}",
+                    lambda x=xi, y=yi, dy=dy, k=k: P.maxpool2d_bwd(x, y, dy, k),
+                    lambda x=xi, y=yi, dy=dy, k=k:
+                    P.maxpool2d_bwd_plain(x, y, dy, k),
+                    lambda dyn=dyn, xn=xn, idx=idx, k=k:
+                    torch.ops.aten.max_pool2d_with_indices_backward(
+                        dyn, xn, [k, k], [k, k], [0, 0], [1, 1], False, idx),
+                    xi.numel() * (k * k + 2),
+                    4 * (2 * xi.numel() + 2 * yi.numel())))
+            else:
+                w = params[f"fc{i}"]["w"]
+                xf = xi.reshape(xi.shape[0], -1)
+                y = None if i == last else yi
+                dz = dy if y is None else dy * (1.0 - yi * yi)
+                B, Din = xf.shape
+                Dout = w.shape[1]
+                calls.append((
+                    "fc_bwd_fused", f"x{tuple(xf.shape)} w{tuple(w.shape)} "
+                    f"tanh={y is not None}",
+                    lambda x=xf, dy=dy, w=w, y=y: FC.fc_bwd_fused(x, dy, w, y),
+                    lambda x=xf, dy=dy, w=w, y=y:
+                    FC.fc_bwd_fused_plain(x, dy, w, y),
+                    lambda x=xf, dz=dz, w=w: (torch.mm(dz, w.t()),
+                                              torch.mm(x.t(), dz),
+                                              dz.sum(0)),
+                    4 * B * Din * Dout + B * Dout * (1 if y is None else 4),
+                    4 * (2 * xf.numel() + dy.numel() * (1 if y is None else 2)
+                         + 2 * w.numel() + Dout)))
+    return calls
+
+
+def step_times(torch, cfg, images, labels, batch):
+    """bsp training step of ``cfg`` at ``batch`` on the card: ms by the
+    host clock around synchronized steps (median of 20) and by CUDA events
+    around 10 back-to-back steps (median of 5)."""
+    from repro_torch.core.chaos import SyncConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    sync = SyncConfig("bsp")
+    state = init_train_state(cfg, torch.Generator().manual_seed(0), sync,
+                             device="cuda")
+    step = make_train_step(cfg, sync, device="cuda")
+    b = {"images": torch.as_tensor(images[:batch], device="cuda"),
+         "labels": torch.as_tensor(labels[:batch], device="cuda")}
+    box = [state]
+
+    def one():
+        box[0], _ = step(box[0], b)
+
+    for _ in range(3):
+        one()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    ev = time_turns(torch, {"step": one}, reps=5, inner=10)["step"]
+    return statistics.median(walls) * 1e3, ev, profile_steps(torch, one)
+
+
+def profile_steps(torch, one, steps: int = 10):
+    """Device activity over ``steps`` calls of ``one`` in a torch.profiler
+    trace: (busy share of the span from the first kernel's start to the
+    last one's end, device ms per step by kernel name, largest first), or
+    None when the trace holds no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            one()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return None
+    start = min(e.time_range.start for e in kernels)
+    end = max(e.time_range.end for e in kernels)
+    busy = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / steps / 1e3
+    return busy / (end - start), sorted(by_name.items(), key=lambda kv: -kv[1])
+
+
 def main() -> int:
     import torch
 
@@ -362,13 +700,12 @@ def main() -> int:
     max_err = check_parity(torch, K, P, FC)
     torch.cuda.synchronize()
 
-    phase("3 main path: chaos-large eval through get_ops on cuda")
+    phase("3 eval path: chaos-large eval through get_ops on cuda")
     images, labels = make_dataset(EVAL_BATCHES * BATCH, seed=2)
     pipe = ImagePipeline(images, labels, batch=BATCH, sample_mode="queue")
     batches_np = [pipe.batch_at(s) for s in range(EVAL_BATCHES)]
     ops, params, batches, counts, seconds = run_net(
         torch, kops, launch_trace, "chaos-large", LARGE_PER_BATCH, batches_np)
-    main_counts = dict(counts)
     print(f"chaos-large first pass: {seconds * 1e3 / EVAL_BATCHES:.4f} ms per "
           f"batch (host clock, synchronized)", flush=True)
     for name in ("chaos-small", "chaos-medium"):
@@ -376,8 +713,16 @@ def main() -> int:
                 batches_np[:1])
     torch.cuda.synchronize()
 
-    phase("4 times at the main path's shapes (CUDA events, median of 21)")
-    calls = main_path_calls(torch, F, K, P, FC, ops.cfg, params, batches[0])
+    phase("4 training path: chaos-large trained through make_train_step / "
+          "make_superstep on cuda")
+    train_counts = check_training(torch, kops, launch_trace,
+                                  batches_np[:TRAIN_STEPS])
+    torch.cuda.synchronize()
+
+    phase("5 times at the training step's shapes (CUDA events, median of 21)")
+    calls = (main_path_calls(torch, F, K, P, FC, ops.cfg, params, batches[0])
+             + backward_calls(torch, F, K, P, FC, ops.cfg, params,
+                              batches[0]))
     totals = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                   "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0}
               for n in SOURCES}
@@ -416,22 +761,53 @@ def main() -> int:
           f" ms per batch (host clock, median of 5) and "
           f"{ev['eval'] / EVAL_BATCHES:.6f} ms per batch (CUDA events)",
           flush=True)
+
+    from repro_torch.train.step import make_optimizer
+    opt = make_optimizer(ops.cfg)
+    _, _, grads = ops.loss_and_grads(params, batches[0])
+    opt_state = opt.init(params)
+    opt_ms = time_turns(torch, {"opt": lambda: opt.apply(
+        params, grads, opt_state, 0)})["opt"]
+    kernel_ms = sum(row["ms"] for row in totals.values())
+    print(f"optimizer apply (sgd, chaos-large): {opt_ms:.6f} ms (CUDA "
+          f"events)", flush=True)
+    for batch in (8, BATCH):
+        wall_ms, ev_ms, prof = step_times(torch, ops.cfg, images, labels,
+                                          batch)
+        print(f"chaos-large bsp training step, B={batch}: {wall_ms:.6f} ms "
+              f"(host clock, median of 20 synchronized steps) and "
+              f"{ev_ms:.6f} ms (CUDA events, 10 steps back to back)",
+              flush=True)
+        if prof is None:
+            print(f"B={batch}: the profiler recorded no device events; "
+                  f"device busy share not measured", flush=True)
+            continue
+        share, by_name = prof
+        print(f"B={batch}: device busy {100 * share:.2f} % of the traced "
+              f"span of 10 steps (torch.profiler); device ms per step by "
+              f"kernel: " + "; ".join(f"{name[:60]} {ms:.6f}"
+                                      for name, ms in by_name[:12]),
+              flush=True)
+    print(f"at B={BATCH}: the seven kernels' times above sum to "
+          f"{kernel_ms:.6f} ms against the {ev_ms:.6f} ms step; the "
+          f"optimizer takes {opt_ms:.6f} ms", flush=True)
     torch.cuda.synchronize()
 
-    phase("5 result")
+    phase("6 result")
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         row = totals[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": main_counts[name],
+            "replaces": replaces, "launches": train_counts[name],
             "max_abs_err": max_err[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": ("operations" if row["ops_ms"] >= row["bytes_ms"]
                          else "bytes"),
             "library_ms": row["library_ms"]})
-    print("kernel times are per chaos-large eval batch of "
-          f"{BATCH} (all of the kernel's launches in one batch); total "
+    print("kernel times are per chaos-large training step of "
+          f"{BATCH} (all of the kernel's launches in one step); launches "
+          f"are those of the {TRAIN_STEPS}-step bsp run; total "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

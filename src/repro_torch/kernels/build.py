@@ -37,12 +37,17 @@ COMPILE_FLAGS = ARCH_FLAGS + ("-O3", "-std=c++17", "-Xcompiler", "-fPIC")
 LIB_NAME = "librepro_torch.so"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: The C interface: entry point -> argument types (the stream comes last).
+#: The C interface: entry point -> argument types (the stream comes last in
+#: every launching entry point).
 C_API = {
     "repro_conv2d_fwd": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     "repro_maxpool2d_fwd": [_P, _P] + [_I] * 5 + [_P],
     "repro_fc_fwd": [_P, _P, _P, _P] + [_I] * 4 + [_P],
     "repro_softmax_xent_fwd": [_P, _P, _P, _P] + [_I] * 2 + [_P],
+    "repro_conv2d_bwd": [_P] * 8 + [_I] * 7 + [_P],
+    "repro_conv2d_bwd_scratch": [_I] * 7,
+    "repro_maxpool2d_bwd": [_P] * 4 + [_I] * 5 + [_P],
+    "repro_fc_bwd": [_P] * 7 + [_I] * 3 + [_P],
 }
 
 

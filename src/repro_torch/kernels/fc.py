@@ -2,9 +2,12 @@
 
 ``fc_fwd``           y = act(x @ w + b), fp32, bias and optional tanh in the
                      epilogue; replaces ``repro.kernels.fc.fc_fwd``.
+``fc_bwd_fused``     (dx, dw, db) of ``fc_fwd`` from one launch, the tanh
+                     derivative fused when the forward output is given;
+                     replaces ``repro.kernels.fc.fc_bwd_fused``.
 ``softmax_xent_fwd`` per-sample CE loss and dlogits = softmax - onehot from
                      one pass; replaces ``repro.kernels.fc.softmax_xent_fwd``.
-                     dlogits is returned because the training slice saves it
+                     dlogits is returned because ``kernels/ops.py`` saves it
                      as the residual of the loss's backward.
 
 On CUDA tensors each launches its kernel in ``csrc/`` (or raises); on CPU
@@ -15,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.conv2d import _act_code, record_launch
+from repro_torch.kernels.conv2d import _act_code, dz_of, record_launch
 
 
 def fc_fwd_plain(x, w, b=None, activation=None):
@@ -48,6 +51,39 @@ def fc_fwd(x, w, b=None, activation=None):
 
 
 fc_fwd.launches = 0
+
+
+def fc_bwd_fused_plain(x, dy, w, y=None):
+    dz = dz_of(dy, y)
+    return dz @ w.T, x.T @ dz, dz.sum(dim=0)
+
+
+def fc_bwd_fused(x, dy, w, y=None):
+    """(dx, dw, db) of ``fc_fwd``: x (B, Din), dy (B, Dout), w (Din, Dout),
+    y (B, Dout) the forward's tanh output or None, all f32 -> dx like x,
+    dw like w, db (Dout,)."""
+    if x.device.type == "cpu":
+        return fc_bwd_fused_plain(x, dy, w, y)
+    B, Din = x.shape
+    Din_w, Dout = w.shape
+    if Din_w != Din or B == 0 or Din == 0:
+        raise ValueError(f"fc_bwd_fused: x {tuple(x.shape)} does not match "
+                         f"w {tuple(w.shape)}")
+    build.check("x", x, torch.float32, x.shape, x.device)
+    build.check("dy", dy, torch.float32, (B, Dout), x.device)
+    build.check("w", w, torch.float32, w.shape, x.device)
+    if y is not None:
+        build.check("y", y, torch.float32, (B, Dout), x.device)
+    dx = torch.empty_like(x)
+    dw = torch.empty_like(w)
+    db = torch.empty((Dout,), dtype=torch.float32, device=x.device)
+    build.launch("repro_fc_bwd", x.device, x, dy, y, w, dx, dw, db, B, Din,
+                 Dout)
+    record_launch(fc_bwd_fused)
+    return dx, dw, db
+
+
+fc_bwd_fused.launches = 0
 
 
 def softmax_xent_fwd_plain(logits, labels):

@@ -3,6 +3,9 @@
     ops = get_ops(cfg)                       # device="cuda" by default
     params = ops.init(torch.Generator().manual_seed(0))
     loss, metrics = ops.loss(params, batch)  # batch: numpy or tensors
+    loss, metrics, grads = ops.loss_and_grads(params, batch)
+    loss, metrics, new_params, grads = ops.loss_and_grads(
+        params, batch, tape=tape)            # the per-layer bucket tape
     logits = ops.forward(params, images)
     spec = ops.bucket_spec()                 # ordered ParamBuckets
     shapes = ops.abstract_params()           # ``meta`` tensors
@@ -31,6 +34,7 @@ class ModelOps:
     loss: Callable
     forward: Callable
     bucket_spec: Callable
+    loss_and_grads: Callable
 
 
 def validate_bucket_spec(spec, abstract_params: dict) -> None:
@@ -69,6 +73,28 @@ def get_ops(cfg: ArchConfig, device="cuda") -> ModelOps:
     def to_device(batch):
         return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
+    def loss_and_grads(params, batch, tape=None):
+        """(loss, metrics, grads) through autograd, or, with ``tape``, the
+        reverse-production bucket walk: ``tape(bucket, params_b, grads_b)
+        -> new_params_b | None`` and a 4-tuple return (loss, metrics,
+        new_params, grads)."""
+        batch = to_device(batch)
+        if tape is not None:
+            return cnn.loss_and_bucket_grads(params, batch, cfg, tape)
+        leaves = {k: {kk: v.detach().requires_grad_(True)
+                      for kk, v in layer.items()}
+                  for k, layer in params.items()}
+        with torch.enable_grad():
+            loss, metrics = cnn.loss_fn(leaves, batch, cfg)
+            keys = [(k, kk) for k, layer in leaves.items() for kk in layer]
+            flat = torch.autograd.grad(loss, [leaves[k][kk]
+                                              for k, kk in keys])
+        grads = {k: {} for k in leaves}
+        for (k, kk), g in zip(keys, flat):
+            grads[k][kk] = g
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                grads)
+
     return ModelOps(
         cfg=cfg, device=device,
         init=lambda generator: cnn.build_params(
@@ -78,4 +104,5 @@ def get_ops(cfg: ArchConfig, device="cuda") -> ModelOps:
         forward=lambda params, images: cnn.forward(
             params, torch.as_tensor(images, device=device), cfg),
         bucket_spec=lambda: cnn.bucket_spec(cfg),
+        loss_and_grads=loss_and_grads,
     )

@@ -1,7 +1,8 @@
 """The paper's CNNs (Table 2): conv/max-pool/fc stacks for 29x29 MNIST.
 
-Counterpart of ``repro.models.cnn``, forward half: valid convolutions,
-max-pooling, tanh hidden activations, softmax-cross-entropy output.  The
+Counterpart of ``repro.models.cnn``: valid convolutions, max-pooling,
+tanh hidden activations, softmax-cross-entropy output, and the per-layer
+bucket tape of the layerwise update (``loss_and_bucket_grads``).  The
 layouts are the JAX package's: NHWC activations, HWIO conv weights and
 ``(Din, Dout)`` FC weights.
 
@@ -9,7 +10,8 @@ The JAX package's ``use_kernel`` switch becomes the device: every layer
 goes through ``repro_torch.kernels.ops``, which launches the hand-written
 CUDA kernels on CUDA tensors and runs their plain PyTorch versions on CPU
 tensors.  One eval batch of chaos-large therefore launches 3 conv + 2 pool
-+ 2 fc + 1 softmax-xent kernels (its 1x1 pool issues no launch).
++ 2 fc + 1 softmax-xent kernels (its 1x1 pool issues no launch), and one
+training step adds 3 + 2 + 2 backward launches: 15 in all.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import math
 import torch
 
 from repro_torch.core.types import ArchConfig, ParamBucket
+from repro_torch.kernels import fc as FC
 from repro_torch.kernels import ops as kops
 
 
@@ -87,21 +90,8 @@ def bucket_spec(cfg: ArchConfig) -> tuple:
 def forward(params, images, cfg: ArchConfig):
     """images: (B, H, W, 1) float32 in [0,1].  Returns (B, n_classes) logits."""
     x = images
-    shapes = _trace_shapes(cfg)
-    for i, (kind, k, _, cin, cout) in enumerate(shapes):
-        if kind == "conv":
-            p = params[f"conv{i}"]
-            x = kops.conv2d_bias_tanh(x, p["w"], p["b"])
-        elif kind == "pool":
-            if k > 1:
-                x = kops.maxpool2d(x, k)
-        else:
-            p = params[f"fc{i}"]
-            if x.dim() > 2:
-                x = x.reshape(x.shape[0], -1)
-            last = i == len(shapes) - 1
-            x = (kops.fc_bias(x, p["w"], p["b"]) if last
-                 else kops.fc_bias_tanh(x, p["w"], p["b"]))
+    for name, fn in _layer_fns(cfg):
+        x = fn(x) if name is None else fn(params[name], x)
     return x
 
 
@@ -113,3 +103,113 @@ def loss_fn(params, batch, cfg: ArchConfig):
     err = (logits.argmax(-1) != labels).float().mean()
     return loss, {"ce": loss, "error_rate": err,
                   "aux": torch.zeros((), device=loss.device)}
+
+
+def _layer_fns(cfg: ArchConfig):
+    """One closure per Table-2 layer, in forward order: ``(name, fn)`` where
+    ``fn(p, x)`` (params-less layers: ``fn(x)``, name None) runs that layer
+    through ``kernels.ops``, as ``forward`` does."""
+    shapes = _trace_shapes(cfg)
+    out = []
+    for i, (kind, k, _, cin, cout) in enumerate(shapes):
+        if kind == "conv":
+            out.append((f"conv{i}", lambda p, x: kops.conv2d_bias_tanh(
+                x, p["w"], p["b"])))
+        elif kind == "pool":
+            if k > 1:
+                out.append((None, lambda x, k=k: kops.maxpool2d(x, k)))
+        else:
+            last = i == len(shapes) - 1
+
+            def fn(p, x, last=last):
+                if x.dim() > 2:
+                    x = x.reshape(x.shape[0], -1)
+                return (kops.fc_bias(x, p["w"], p["b"]) if last
+                        else kops.fc_bias_tanh(x, p["w"], p["b"]))
+            out.append((f"fc{i}", fn))
+    return out
+
+
+def _layer_bwd_fns(cfg: ArchConfig):
+    """Saved-activation backward closure per layer, forward order (matching
+    ``_layer_fns``): ``bwd(p, x, y, g) -> (dp, dx)`` for parameterised
+    layers, ``bwd(x, y, g) -> dx`` for pool.  ``x``/``y`` are the layer's
+    kept input and output, so no closure re-runs the forward: each calls
+    the ``kernels.ops`` saved-activation entry point, which issues the same
+    launch as the op's autograd backward."""
+    shapes = _trace_shapes(cfg)
+    out = []
+    for i, (kind, k, _, cin, cout) in enumerate(shapes):
+        if kind == "conv":
+            def bwd(p, x, y, g):
+                dx, dw, db = kops.conv2d_bias_tanh_bwd(x, p["w"], p["b"], y,
+                                                       g)
+                return {"w": dw, "b": db}, dx
+            out.append(bwd)
+        elif kind == "pool":
+            if k > 1:
+                out.append(lambda x, y, g, k=k: kops.maxpool2d_vjp_saved(
+                    x, y, g, k))
+        else:
+            last = i == len(shapes) - 1
+
+            def bwd(p, x, y, g, last=last):
+                xf = x.reshape(x.shape[0], -1) if x.dim() > 2 else x
+                if last:
+                    dxf, dw, db = kops.fc_bias_bwd(xf, p["w"], p["b"], g)
+                else:
+                    dxf, dw, db = kops.fc_bias_tanh_bwd(xf, p["w"], p["b"],
+                                                        y, g)
+                return {"w": dw, "b": db}, dxf.reshape(x.shape)
+            out.append(bwd)
+    return out
+
+
+def loss_and_bucket_grads(params, batch, cfg: ArchConfig, tape):
+    """The paper's §3 update rule as a bucket tape: non-instant per-bucket
+    weight updates during back-propagation.
+
+    The forward runs at the incoming ``params`` and keeps every layer's
+    input and output; the backward then walks the layers in reverse and,
+    the moment bucket b's gradient exists, calls ``tape(bucket, params_b,
+    grads_b) -> new_params_b`` (``None`` leaves the bucket untouched).
+    Every launch is the one the autograd path issues on the same inputs,
+    so the gradients equal ``loss_and_grads``' bit for bit.
+
+    Returns ``(loss, metrics, new_params, grads)`` with ``grads`` the fresh
+    float32 per-bucket gradients.
+    """
+    labels = batch["labels"]
+    buckets = {b.name: b for b in bucket_spec(cfg)}
+    layers = _layer_fns(cfg)
+    with torch.no_grad():
+        x = batch["images"]
+        acts = [x]  # acts[i] / acts[i + 1] = layer i's input / output
+        for name, fn in layers:
+            x = fn(x) if name is None else fn(params[name], x)
+            acts.append(x)
+        logits = x.float()
+        losses, dl = FC.softmax_xent_fwd(logits, labels)
+        loss = losses.mean()
+        err = (logits.argmax(-1) != labels).float().mean()
+        metrics = {"ce": loss, "error_rate": err,
+                   "aux": torch.zeros((), device=loss.device)}
+        # mean's backward, then the loss's: the cotangents autograd forms
+        g = torch.ones_like(loss).expand(losses.shape[0]) / losses.shape[0]
+        dy = kops.softmax_xent_bwd(dl, g)
+
+        new_params = dict(params)
+        grads = {}
+        for (name, _fn), bwd, x_in, y_out in zip(
+                reversed(layers), reversed(_layer_bwd_fns(cfg)),
+                reversed(acts[:-1]), reversed(acts[1:])):
+            if name is None:
+                dy = bwd(x_in, y_out, dy)
+                continue
+            dp, dy = bwd(params[name], x_in, y_out, dy)
+            dp = {k: v.float() for k, v in dp.items()}
+            grads[name] = dp
+            out = tape(buckets[name], {name: params[name]}, {name: dp})
+            if out is not None:
+                new_params.update(out)
+    return loss, metrics, new_params, grads

@@ -1,0 +1,329 @@
+"""Pluggable synchronization-strategy engine of the port (counterpart of
+``repro.train.sync``), single-instance paths.
+
+Every gradient-synchronization mode is one strategy class registered here
+by name.  The step builders in ``train/step.py`` are strategy-agnostic:
+they build a ``StepContext`` describing the execution path and delegate
+the whole step body to the strategy.  There are no per-mode branches
+outside this module.
+
+Protocol (one strategy instance per ``SyncConfig``):
+
+``init_state(params)``      sync buffers carried in ``state["sync"]``
+``step(ctx, state, batch)`` the full train-step body
+``boundary(ctx, params, sync_state, step) -> (params, sync_state)``
+                            end-of-step parameter hook (localsgd's K-step
+                            average and its τ-ring of corrections)
+``finish_step(...)``        packs the step result into the new state
+``bucket_exchange(ctx, sync_state, step) -> (exchange_bucket, finish)``
+                            the per-bucket exchange of the layerwise path:
+                            ``exchange_bucket(bucket, grads_b)`` is called
+                            in reverse-production order the moment bucket
+                            b's gradient exists and returns the gradient
+                            bucket the optimizer applies; ``finish(grads)``
+                            returns the new sync state
+
+Registered strategies: ``bsp``, ``chaos`` (τ=0 resolves to the bsp object
+itself) and ``localsgd``.  The worker mesh (``ctx.explicit_workers``) is
+not yet ported and raises.
+
+``step`` is a host int in the port's train state (the JAX package carries a
+device int32 in its scan carry), so the ring slot ``step % τ`` and the
+localsgd boundary are chosen on the host: a ring read is a dict lookup and
+a write replaces one slot, where the JAX package selects whole leaves with
+``jnp.where``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core.chaos import (SyncConfig, compress_grads, dtype_named,
+                                    localsgd_average, zeros_like_f32)
+from repro_torch.core.tree import tree_map
+
+STRATEGIES: dict = {}
+
+
+def register(cls):
+    STRATEGIES[cls.name] = cls
+    return cls
+
+
+def sync_modes() -> list:
+    """Registered mode names."""
+    return sorted(STRATEGIES)
+
+
+def get_strategy(sync: SyncConfig) -> "SyncStrategy":
+    try:
+        cls = STRATEGIES[sync.mode]
+    except KeyError:
+        raise ValueError(
+            f"unknown sync mode {sync.mode!r}; registered strategies: "
+            f"{', '.join(sync_modes())}") from None
+    return cls(sync).resolve()
+
+
+def _identity(tree):
+    return tree
+
+
+@dataclasses.dataclass(frozen=True)
+class StepContext:
+    """Execution-path plumbing handed to a strategy.
+
+    ``grad_fn(params, batch) -> (loss, metrics, grads)``; ``combine`` maps
+    local gradients to the global mean, ``local_mean`` to the mean over
+    this worker's data (both the identity on one instance).
+    ``explicit_workers`` selects the worker mesh, which is not yet ported,
+    and with it the mesh's other reducers.
+    """
+    optimizer: object
+    grad_fn: Optional[Callable] = None
+    combine: Callable = _identity
+    local_mean: Callable = _identity
+    explicit_workers: bool = False
+
+
+def _single_instance(ctx: StepContext) -> None:
+    if ctx.explicit_workers:
+        raise NotImplementedError(
+            "the explicit worker mesh (ctx.explicit_workers=True) is not yet "
+            "ported to repro_torch")
+
+
+# ---------------------------------------------------------------------------
+# staleness ring: τ params-shaped trees {"h0".."h{τ-1}"}; the slot for step
+# t holds the exchange produced at t, read back at t + τ (slot t % τ).
+# ``dtype`` overrides the slot dtype (``SyncConfig.ring_dtype``): writes
+# quantise, reads return the stored dtype and the consumer upcasts.
+# ---------------------------------------------------------------------------
+def init_ring(params, tau: int, dtype=None) -> dict:
+    return {f"h{i}": tree_map(
+        lambda p: torch.zeros(p.shape, dtype=dtype or p.dtype,
+                              device=p.device), params)
+        for i in range(tau)}
+
+
+def ring_read(hist, step: int, tau: int):
+    return hist[f"h{step % tau}"]
+
+
+def ring_write(hist, step: int, tau: int, val):
+    slot = f"h{step % tau}"
+    return {**hist, slot: tree_map(lambda h, v: v.to(h.dtype), hist[slot],
+                                   val)}
+
+
+@register
+class BspStrategy:
+    """Bulk-synchronous (paper strategy B): the combined fresh gradient is
+    on the critical path of every update."""
+
+    name = "bsp"
+    workers_identical = True
+
+    def __init__(self, sync: SyncConfig):
+        self.sync = sync
+
+    def resolve(self) -> "SyncStrategy":
+        return self
+
+    def init_state(self, params) -> dict:
+        if self.sync.compress:
+            return {"residual": zeros_like_f32(params)}
+        return {}
+
+    # -- shared pieces --------------------------------------------------
+    def _maybe_compress(self, ctx: StepContext, grads, sync_state):
+        """bf16-quantise the exchanged gradients with error feedback; on
+        one instance the quantised values are upcast at once."""
+        new_sync = dict(sync_state)
+        if self.sync.compress:
+            grads, new_sync["residual"] = compress_grads(
+                grads, sync_state["residual"])
+            grads = tree_map(lambda g: g.float(), grads)
+        return grads, new_sync
+
+    def finish_step(self, ctx: StepContext, state, new_params, new_opt,
+                    new_sync, losses, metrics):
+        packed = {**metrics, "loss": losses}
+        packed = (ctx.combine(packed) if self.workers_identical
+                  else ctx.local_mean(packed))
+        new_state = {"params": new_params, "opt": new_opt, "sync": new_sync,
+                     "step": state["step"] + 1}
+        return new_state, packed
+
+    def _reduce(self, ctx: StepContext, grads):
+        return ctx.combine(grads)
+
+    def _ring_dtype(self):
+        return (dtype_named(self.sync.ring_dtype) if self.sync.ring_dtype
+                else None)
+
+    def boundary(self, ctx: StepContext, params, sync_state, step: int):
+        """K-boundary hook, after the optimizer applied this step's
+        update."""
+        return params, sync_state
+
+    # -- the step body ---------------------------------------------------
+    def step(self, ctx: StepContext, state, batch):
+        _single_instance(ctx)
+        losses, metrics, grads = ctx.grad_fn(state["params"], batch)
+        grads, new_sync = self._maybe_compress(ctx, grads, state["sync"])
+        g = self._reduce(ctx, grads)
+        new_params, new_opt = ctx.optimizer.apply(
+            state["params"], g, state["opt"], state["step"])
+        new_params, new_sync = self.boundary(ctx, new_params, new_sync,
+                                             state["step"])
+        return self.finish_step(ctx, state, new_params, new_opt, new_sync,
+                                losses, metrics)
+
+    # -- per-bucket exchange (the layerwise path) -------------------------
+    def bucket_exchange(self, ctx: StepContext, sync_state, step: int):
+        _single_instance(ctx)
+        residual_out: dict = {}
+
+        def exchange_bucket(bucket, g_b):
+            g_b = self._compress_bucket(bucket, g_b, sync_state,
+                                        residual_out)
+            return self._reduce(ctx, g_b)
+
+        def finish(grads):
+            del grads
+            return self._merge_residual(sync_state, residual_out)
+
+        return exchange_bucket, finish
+
+    def _compress_bucket(self, bucket, g_b, sync_state, residual_out):
+        if not self.sync.compress:
+            return g_b
+        g_b, new_res = compress_grads(g_b, bucket.view(sync_state["residual"]))
+        residual_out.update(new_res)
+        return tree_map(lambda g: g.float(), g_b)
+
+    def _merge_residual(self, sync_state, residual_out):
+        new_sync = dict(sync_state)
+        if residual_out:
+            new_sync["residual"] = {**sync_state["residual"], **residual_out}
+        return new_sync
+
+
+@register
+class LocalSGDStrategy(BspStrategy):
+    """Paper strategy-C flavour: purely local gradients; parameters averaged
+    over the worker axis every ``local_steps`` steps.
+
+    ``SyncConfig.staleness`` counts boundaries here.  τ=0 is the blocking
+    K-boundary average (``localsgd_average``).  τ>=1 keeps a τ-deep ring
+    of stale corrections: at boundary m each replica computes
+    ``mean(params) - params``, writes it into slot m % τ and applies the
+    correction written at boundary m - τ.  On one instance the mean is the
+    params themselves, so every correction is zero."""
+
+    name = "localsgd"
+    workers_identical = False
+
+    def _tau(self) -> int:
+        return self.sync.staleness
+
+    def init_state(self, params) -> dict:
+        st = super().init_state(params)
+        if self._tau() >= 1:
+            st["lsring"] = init_ring(params, self._tau(), self._ring_dtype())
+        return st
+
+    def _reduce(self, ctx: StepContext, grads):
+        return ctx.local_mean(grads)
+
+    def boundary(self, ctx: StepContext, params, sync_state, step: int):
+        sync = self.sync
+        tau = self._tau()
+        if tau == 0:
+            return localsgd_average(sync, params, step), sync_state
+        if (step + 1) % sync.local_steps != 0:
+            return params, sync_state
+        m = (step + 1) // sync.local_steps - 1  # 0-based boundary index
+        ring = sync_state["lsring"]
+        stale = ring_read(ring, m, tau)
+        new_params = tree_map(lambda p, s: p + s.to(p.dtype), params, stale)
+        avg = localsgd_average(sync, new_params, step)
+        corr = tree_map(lambda a, p: a - p, avg, new_params)
+        return new_params, {**sync_state,
+                            "lsring": ring_write(ring, m, tau, corr)}
+
+
+@register
+class ChaosStrategy(BspStrategy):
+    """Staleness-τ controlled Hogwild (the paper's CHAOS proper).
+
+    τ = ``SyncConfig.staleness``.  τ=0 never reaches this class:
+    ``resolve()`` hands back a ``BspStrategy``, so chaos(τ=0) is bsp by
+    construction.  On one instance the peers are the implicit reduction,
+    so the whole combined gradient is applied τ steps late."""
+
+    name = "chaos"
+    workers_identical = False
+
+    def resolve(self) -> "SyncStrategy":
+        if self.sync.staleness == 0:
+            return BspStrategy(self.sync)
+        return self
+
+    def init_state(self, params) -> dict:
+        st = {"hist": init_ring(params, self.sync.staleness,
+                                self._ring_dtype())}
+        if self.sync.compress:
+            st["residual"] = zeros_like_f32(params)
+        return st
+
+    def step(self, ctx: StepContext, state, batch):
+        _single_instance(ctx)
+        return self._delayed_step(ctx, state, batch)
+
+    def _delayed_step(self, ctx: StepContext, state, batch):
+        """1) update with the τ-step-stale reduced gradient; 2) fresh
+        gradients at the new params go to ring slot t, read back at t+τ."""
+        tau = self.sync.staleness
+        hist = state["sync"]["hist"]
+        stale = ring_read(hist, state["step"], tau)
+        new_params, new_opt = ctx.optimizer.apply(
+            state["params"], stale, state["opt"], state["step"])
+        losses, metrics, grads = ctx.grad_fn(new_params, batch)
+        grads, new_sync = self._maybe_compress(ctx, grads, state["sync"])
+        new_sync["hist"] = ring_write(hist, state["step"], tau,
+                                      ctx.combine(grads))
+        return self.finish_step(ctx, state, new_params, new_opt, new_sync,
+                                losses, metrics)
+
+    def bucket_exchange(self, ctx: StepContext, sync_state, step: int):
+        """Layerwise chaos (paper §3 order): the forward runs at the
+        pre-update weights; during backprop each bucket applies, the moment
+        its fresh gradient exists, the τ-step-stale exchange, and the fresh
+        exchange enters the ring for step t+τ bucket by bucket."""
+        _single_instance(ctx)
+        tau = self.sync.staleness
+        stale = ring_read(sync_state["hist"], step, tau)
+        residual_out: dict = {}
+        fresh: dict = {}
+
+        def exchange_bucket(bucket, g_b):
+            g_b = self._compress_bucket(bucket, g_b, sync_state,
+                                        residual_out)
+            fresh.update(ctx.combine(g_b))
+            return bucket.view(stale)
+
+        def finish(grads):
+            del grads
+            new_sync = self._merge_residual(sync_state, residual_out)
+            new_sync["hist"] = ring_write(sync_state["hist"], step, tau,
+                                          fresh)
+            return new_sync
+
+        return exchange_bucket, finish
+
+
+SyncStrategy = BspStrategy  # protocol root: every strategy subclasses it

@@ -16,7 +16,10 @@ from repro_torch import configs
 from repro_torch.data.mnist import make_dataset
 from repro_torch.kernels import build
 from repro_torch.kernels import ops as kops
+from repro_torch.core.chaos import SyncConfig
 from repro_torch.models import api
+from repro_torch.train.step import (init_train_state, make_superstep,
+                                    make_train_step)
 
 torch.set_num_threads(1)
 
@@ -42,8 +45,14 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 def test_get_ops_without_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get("chaos-small")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        api.get_ops(configs.get("chaos-small"))
+        api.get_ops(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(cfg, torch.Generator(), SyncConfig("bsp"))
+    for build_fn in (make_train_step, make_superstep):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_fn(cfg, SyncConfig("bsp"))
     assert api.get_ops(configs.get("chaos-small"), device="cpu").device == \
         torch.device("cpu")
 
@@ -51,13 +60,22 @@ def test_get_ops_without_device_raises_without_cuda(monkeypatch):
 @pytest.mark.parametrize("name", ["chaos-small", "chaos-large"])
 def test_cpu_path_leaves_every_launch_count_at_zero(name):
     kops.reset_launch_counts()
-    ops = api.get_ops(configs.get(name), device="cpu")
+    cfg = configs.get(name)
+    ops = api.get_ops(cfg, device="cpu")
     params = ops.init(torch.Generator().manual_seed(0))
     images, labels = make_dataset(4, seed=0)
-    loss, m = ops.loss(params, {"images": images, "labels": labels})
+    batch = {"images": images, "labels": labels}
+    loss, m = ops.loss(params, batch)
     assert np.isfinite(loss.item())
-    assert kops.launch_counts() == {"conv2d_fwd": 0, "maxpool2d_fwd": 0,
-                                    "fc_fwd": 0, "softmax_xent_fwd": 0}
+    for sync in (SyncConfig("bsp"), SyncConfig("chaos", layerwise=True)):
+        state = init_train_state(cfg, torch.Generator().manual_seed(0), sync,
+                                 device="cpu")
+        state, m = make_train_step(cfg, sync, device="cpu")(state, batch)
+        assert np.isfinite(m["loss"].item())
+    assert kops.launch_counts() == {
+        "conv2d_fwd": 0, "maxpool2d_fwd": 0, "fc_fwd": 0,
+        "softmax_xent_fwd": 0, "conv2d_bwd_fused": 0, "maxpool2d_bwd": 0,
+        "fc_bwd_fused": 0}
 
 
 def test_build_refuses_to_run_without_nvcc(monkeypatch, tmp_path):
@@ -79,7 +97,8 @@ def test_build_dir_is_keyed_by_the_sources(monkeypatch, tmp_path):
     (csrc / "pool.cu").write_text((csrc / "pool.cu").read_text() + "\n")
     assert build.build_dir() != before
     assert [p.name for p in build.sources()] == [
-        "conv2d.cu", "errors.cu", "fc.cu", "pool.cu", "softmax_xent.cu"]
+        "conv2d.cu", "conv2d_bwd.cu", "errors.cu", "fc.cu", "fc_bwd.cu",
+        "pool.cu", "pool_bwd.cu", "softmax_xent.cu"]
 
 
 def test_c_api_names_every_entry_point_of_the_sources():

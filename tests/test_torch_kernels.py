@@ -190,23 +190,12 @@ def test_record_launch_counts_and_traces_nested_blocks():
     assert inner == ["fake_kernel"]
 
 
-class _FakeCudaTensor:
-    is_cuda = True
-
-    def __init__(self, requires_grad):
-        self.requires_grad = requires_grad
-
-
-def test_cuda_input_that_requires_grad_raises():
-    with pytest.raises(RuntimeError, match="training slice"):
-        ops._forward_only(_FakeCudaTensor(True), None)
-    ops._forward_only(_FakeCudaTensor(False))
-    with torch.no_grad():
-        ops._forward_only(_FakeCudaTensor(True))
-
-
 def test_cpu_input_that_requires_grad_runs_the_plain_version():
     x = torch.rand(2, 3, requires_grad=True)
-    y = ops.fc_bias_tanh(x, torch.rand(3, 4), torch.rand(4))
+    w, b = torch.rand(3, 4), torch.rand(4)
+    y = ops.fc_bias_tanh(x, w, b)
     y.sum().backward()
     assert x.grad is not None and x.grad.shape == x.shape
+    dx, _, _ = FC.fc_bwd_fused_plain(x.detach(), torch.ones(2, 4), w,
+                                     y.detach())
+    assert torch.equal(x.grad, dx)
