@@ -31,12 +31,39 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
    the port never calls) and its bound on the card, by CUDA events,
    median of 21 samples taken in alternating turns after warm-up; the
    eval time per batch, the optimizer's time and the training step's time
-   at B=8 and B=256.
-6. Result lines: ``nvidia-smi``'s name and power limit, one JSON object of
-   the kernels, and last ``{"ok": true, "device": {...}}``.
+   at B=8 and B=256.  The CNN phases then free their memory.
+6. Flash parity: the flash-attention kernel against its plain version on
+   the card at qwen3-14b's prefill shapes (4 prompts of 1024 over a 2048
+   cache, Hq 40 over Hkv 8, D=128, bf16, q and the cache as the strided
+   views the model passes) and at edge shapes (D=16, G=1, Tq no tile
+   multiple, q_offset > 0, f32 inputs, f32 q over a bf16 cache, not
+   causal, LSE).
+7. Serving: qwen3-14b at full width and full depth (``CONFIG``, weights
+   from ``torch.Generator("cuda").manual_seed(0)``) through
+   ``launch/serve.py``: the static batch ``serve(batch=4, prompt_len=1024,
+   gen=32, max_seq=2048)`` twice (token-identical) and a continuous-
+   batching ``serve_trace(slots=4, requests=8, rate=0.5, prompt_lens=(64,
+   1024), gen=16)``, counts from 0 around each run: exactly 40 flash
+   launches per prefill dispatch, 0 per decode dispatch, 1 prefill +
+   (gen - 1) decodes per static batch.  The plain attention route on the
+   same prompts: first-token logits within 2e-2 of the row's max |logit|
+   at 2 layers and 0.1 at 40, beside a depth sweep that also puts the
+   kernel's own plain version in its place (the rounding floor).
+8. Card against CPU: qwen3-14b at full width cut to 2 layers, weights drawn
+   on the card and copied to the host; 2 prompts of 32 tokens served for
+   4 tokens through the kernel route on the card and the plain route on
+   the CPU; prefill logits within 2e-2 of the row's max |logit|, argmax
+   equal wherever the CPU's top-2 margin exceeds that.
+9. Serving times: the flash kernel per prefill (40 launches) against its
+   plain version, SDPA (a yardstick the port never calls) and its bound;
+   prefill dispatch, decode step against its weight-read bound, tokens/s,
+   peak memory, and one torch.profiler trace of a prefill.
+10. Result lines: ``nvidia-smi``'s name and power limit, one JSON object of
+    the kernels, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -45,6 +72,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -52,6 +81,9 @@ sys.path.insert(0, str(ROOT / "src"))
 #: cores, and HBM3 bandwidth.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+#: bf16 dense tensor cores: the least time the card could take for the
+#: flash kernel's products.
+PEAK_BF16 = 989e12
 BATCH = 256
 EVAL_BATCHES = 8
 TRAIN_STEPS = 8
@@ -82,6 +114,31 @@ SOURCES = {
     "fc_bwd_fused": ("src/repro_torch/kernels/csrc/fc_bwd.cu",
                      "src/repro/kernels/fc.py:122"),
 }
+#: The served model and its two cells.
+QWEN = "qwen3-14b"
+STATIC = dict(batch=4, prompt_len=1024, gen=32, max_seq=2048)
+TRACE = dict(slots=4, requests=8, rate=0.5, prompt_lens=(64, 1024), gen=16,
+             max_seq=2048)
+#: Flash kernel against its plain version on the card: a bf16 output within
+#: one bf16 ulp (both round f32 sums taken in another order) or, where the
+#: row's sum cancels to near zero and one ulp is far below the f32 sums'
+#: rounding, within an absolute FLASH_BF16_ABS; an f32 output at (atol,
+#: rtol); the LSE at an absolute 1e-5.
+FLASH_BF16_ABS = 1e-6
+FLASH_F32_TOL = (1e-5, 1e-4)
+FLASH_LSE_ATOL = 1e-5
+#: Logits of the two attention routes, or of the card and the CPU, at 2
+#: layers: the max |diff| of each row within this share of the row's max
+#: |logit| (bf16 activations rounded at other places; one bf16 ulp of the
+#: largest logit is 0.4-0.8 % of it).
+LOGIT_REL = 2e-2
+#: The same at full depth.  With random weights the 40 bf16 layers amplify
+#: any rounding difference: the kernel route against the kernel's own plain
+#: version in the model (the same arithmetic, f32 sums in another order)
+#: already differ by 3.5 % of the row's max |logit| at 40 layers and 0.5 %
+#: at 1, on an H100 80GB HBM3 at 700 W (this script's depth sweep; PERF.md
+#: keeps the numbers).
+LOGIT_REL_DEEP = 0.1
 #: Launches of one chaos-large eval batch (its 1x1 pool issues none).
 LARGE_PER_BATCH = {"conv2d_fwd": 3, "maxpool2d_fwd": 2, "fc_fwd": 2,
                    "softmax_xent_fwd": 1}
@@ -637,8 +694,9 @@ def step_times(torch, cfg, images, labels, batch):
 def profile_steps(torch, one, steps: int = 10):
     """Device activity over ``steps`` calls of ``one`` in a torch.profiler
     trace: (busy share of the span from the first kernel's start to the
-    last one's end, device ms per step by kernel name, largest first), or
-    None when the trace holds no device events."""
+    last one's end, device ms per step by kernel name, largest first,
+    device kernels per step), or None when the trace holds no device
+    events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -658,7 +716,423 @@ def profile_steps(torch, one, steps: int = 10):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             e.time_range.elapsed_us() / steps / 1e3
-    return busy / (end - start), sorted(by_name.items(), key=lambda kv: -kv[1])
+    return (busy / (end - start),
+            sorted(by_name.items(), key=lambda kv: -kv[1]),
+            len(kernels) / steps)
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: flash parity
+# ---------------------------------------------------------------------------
+def bf16_ulps(torch, a, b):
+    """How many bf16 values lie between a and b, elementwise (0 for equal,
+    1 for neighbours), from the bit patterns, across zero too."""
+    def order(x):
+        bits = x.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (order(a) - order(b)).abs()
+
+
+def flash_inputs(torch, g, A, Hq, Hkv, T, Tk, D, qdt, kvdt):
+    """q over (A, T, Hq, D) memory and k, v over a (A, Tk, Hkv, D) cache,
+    seen as the (B, H, T, D) views the model passes to the kernel."""
+    q = torch.randn(A, T, Hq, D, generator=g, device="cuda").to(qdt)
+    k = torch.randn(A, Tk, Hkv, D, generator=g, device="cuda").to(kvdt)
+    v = torch.randn(A, Tk, Hkv, D, generator=g, device="cuda").to(kvdt)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def check_flash_parity(torch, FA) -> float:
+    g = torch.Generator(device="cuda").manual_seed(4321)
+    bf, f32 = torch.bfloat16, torch.float32
+    worst = 0.0
+    for (label, A, Hq, Hkv, T, Tk, D, off, causal, qdt, kvdt, lse) in [
+            ("qwen3-14b prefill", 4, 40, 8, 1024, 2048, 128, 0, True, bf, bf,
+             False),
+            ("qwen3-14b prefill, LSE", 4, 40, 8, 1024, 2048, 128, 0, True, bf,
+             bf, True),
+            ("smoke heads, D=16", 3, 4, 2, 37, 64, 16, 0, True, bf, bf, True),
+            ("G=1, Tq=100, q_offset=50", 2, 2, 2, 100, 300, 128, 50, True, bf,
+             bf, True),
+            ("f32, G=5, q_offset=13", 2, 10, 2, 70, 130, 64, 13, True, f32,
+             f32, True),
+            ("not causal, D=32", 1, 4, 2, 33, 57, 32, 0, False, bf, bf, True),
+            ("f32 q over a bf16 cache", 2, 4, 2, 12, 32, 16, 4, True, f32, bf,
+             True)]:
+        q, k, v = flash_inputs(torch, g, A, Hq, Hkv, T, Tk, D, qdt, kvdt)
+        kw = dict(causal=causal, q_offset=off, return_lse=lse)
+        got = FA.flash_attention_fwd(q, k, v, **kw)
+        want = FA.flash_attention_fwd_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        (o, l), (wo, wl) = (got, want) if lse else ((got, None), (want, None))
+        shape = f"q{tuple(q.shape)} kv{tuple(k.shape)} {str(qdt)[6:]}/" \
+                f"{str(kvdt)[6:]} q_offset={off} causal={causal}"
+        if o.shape != wo.shape or o.dtype != wo.dtype:
+            raise AssertionError(f"flash {label}: {o.shape} {o.dtype} vs "
+                                 f"plain {wo.shape} {wo.dtype}")
+        if not torch.isfinite(o).all():
+            raise AssertionError(f"flash {label}: non-finite output")
+        diff = (o.float() - wo.float()).abs()
+        if o.dtype == torch.bfloat16:
+            bad = (bf16_ulps(torch, o, wo) > 1) & (diff > FLASH_BF16_ABS)
+            tol = f"1 bf16 ulp or {FLASH_BF16_ABS} absolute"
+        else:
+            atol, rtol = FLASH_F32_TOL
+            bad = diff > atol + rtol * wo.abs()
+            tol = f"atol {atol} rtol {rtol}"
+        if bool(bad.any()):
+            i = bad.nonzero()[0].tolist()
+            raise AssertionError(
+                f"flash {label} {shape}: {int(bad.sum())} outputs beyond "
+                f"{tol}, first at {i}: kernel {o[tuple(i)].item()!r} plain "
+                f"{wo[tuple(i)].item()!r}")
+        lse_err = (l - wl).abs().max().item() if lse else 0.0
+        if lse_err > FLASH_LSE_ATOL:
+            raise AssertionError(f"flash {label}: LSE off by {lse_err:.3e}")
+        worst = max(worst, diff.max().item())
+        print(f"parity flash_attention_fwd {label} {shape}: max_abs_err="
+              f"{diff.max().item():.3e} (within {tol})"
+              + (f", LSE max_abs_err={lse_err:.3e}" if lse else ""),
+              flush=True)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: serving at full width and full depth
+# ---------------------------------------------------------------------------
+def dispatch_recorder(FA):
+    """An ``on_dispatch`` callback and the log it fills: (kind, host
+    seconds, flash launches since the previous dispatch)."""
+    log, last = [], [0]
+
+    def on_dispatch(kind, seconds):
+        n = FA.flash_attention_fwd.launches
+        log.append((kind, seconds, n - last[0]))
+        last[0] = n
+
+    return log, on_dispatch
+
+
+def check_launches(kops, log, n_layers, what):
+    """Every prefill dispatch launched the flash kernel once per layer and
+    every decode dispatch not at all; nothing else launched."""
+    counts = kops.launch_counts()
+    n_pre = sum(1 for kind, _, _ in log if kind == "prefill")
+    for kind, _, n in log:
+        want = n_layers if kind == "prefill" else 0
+        if n != want:
+            raise AssertionError(f"{what}: a {kind} dispatch launched the "
+                                 f"flash kernel {n} times, expected {want}")
+    want = {k: 0 for k in counts}
+    want["flash_attention_fwd"] = n_layers * n_pre
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+    return counts
+
+
+def static_prompts(cfg):
+    """The prompts ``serve`` builds for its static batch (seed 0)."""
+    rng = np.random.default_rng(0)
+    return np.stack([rng.integers(0, cfg.vocab_size, size=(
+        STATIC["prompt_len"],)).astype(np.int32)
+        for _ in range(STATIC["batch"])])
+
+
+def serve_static(torch, FA, kops, params, use_kernel=True):
+    """The static batch through ``launch/serve.py::serve`` with counts from
+    0: returns (tokens, dispatch log, counts, seconds)."""
+    from repro_torch.launch.serve import serve
+
+    log, on_dispatch = dispatch_recorder(FA)
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens = serve(QWEN, smoke=False, params=params, use_kernel=use_kernel,
+                   on_dispatch=on_dispatch, **STATIC)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    kinds = [kind for kind, _, _ in log]
+    if kinds != ["prefill"] + ["decode"] * (STATIC["gen"] - 1):
+        raise AssertionError(f"static batch dispatches {kinds}")
+    if tokens.shape != (STATIC["batch"], STATIC["gen"]):
+        raise AssertionError(f"static batch tokens {tokens.shape}")
+    return tokens, log, counts, seconds
+
+
+def prefill_logits(torch, ops, params, tokens, use_kernel, max_seq):
+    """Logits (rows, T, vocab) f32 of one prefill of ``tokens``."""
+    A, T = tokens.shape
+    logits, _ = ops.prefill(params, ops.init_cache(A, max_seq), tokens,
+                            np.full((A,), T, np.int32), 0,
+                            use_kernel=use_kernel)
+    return logits[:, :, :ops.cfg.vocab_size].float()
+
+
+def row_rel_err(torch, got, want):
+    """max |got - want| of each row over the row's max |want|."""
+    return ((got - want).abs().amax(dim=-1)
+            / want.abs().amax(dim=-1).clamp_min(1e-30))
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def depth_cut(cfg, params, n):
+    """The first ``n`` layers of a stacked dense LM: (config, params)."""
+    return (dataclasses.replace(cfg, n_layers=n),
+            dict(params, layers=tree_map(lambda a: a[:n], params["layers"])))
+
+
+def route_divergence(torch, FA, cfg, params, prompts):
+    """First-token logits of the kernel route against the plain route, and
+    against the kernel's own plain version put in the kernel's place, at
+    the depths the check holds (2 and all layers) and a few between;
+    returns {depth: (kernel vs plain, kernel vs kernel's plain version)},
+    each the largest row's max |diff| over its max |logit|."""
+    from repro_torch.models import lm
+    from repro_torch.models.api import get_ops
+
+    out, S = {}, STATIC["max_seq"]
+    for n in (1, 2, 8, cfg.n_layers):
+        c, p = depth_cut(cfg, params, n)
+        ops = get_ops(c)
+        lk = prefill_logits(torch, ops, p, prompts, True, S)
+        lp = prefill_logits(torch, ops, p, prompts, False, S)
+        lm.flash_attention_fwd = FA.flash_attention_fwd_plain
+        try:
+            lv = prefill_logits(torch, ops, p, prompts, True, S)
+        finally:
+            lm.flash_attention_fwd = FA.flash_attention_fwd
+        out[n] = tuple(row_rel_err(torch, lk[:, -1], x[:, -1]).max().item()
+                       for x in (lp, lv))
+        agree = (lk[:, -1].argmax(-1) == lp[:, -1].argmax(-1)).tolist()
+        print(f"depth {n}: first-token logits max |diff| / row max |logit|: "
+              f"kernel vs plain route {out[n][0]:.6f}, kernel vs the "
+              f"kernel's plain version in its place {out[n][1]:.6f}; greedy "
+              f"first tokens of the two routes equal {agree}", flush=True)
+    return out
+
+
+def check_serving(torch, FA, kops):
+    """Phase 7; returns what phase 9 and the result line read."""
+    from repro_torch.configs import get
+    from repro_torch.launch.serve import serve_trace
+    from repro_torch.models.api import get_ops
+
+    cfg = get(QWEN)
+    ops = get_ops(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = ops.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    param_bytes = n_params * 2
+    print(f"{QWEN}: {n_params} params ({param_bytes / 1e9:.3f} GB bf16) "
+          f"drawn on the card in {time.perf_counter() - t0:.3f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+
+    runs = []
+    for i in range(2):
+        tokens, log, counts, seconds = serve_static(torch, FA, kops, params)
+        check_launches(kops, log, cfg.n_layers, f"static batch run {i + 1}")
+        runs.append((tokens, log, counts, seconds))
+        print(f"static batch run {i + 1}: {STATIC}, {seconds:.3f} s, "
+              f"launches {counts}, dispatches 1 prefill + "
+              f"{len(log) - 1} decode", flush=True)
+    if not np.array_equal(runs[0][0], runs[1][0]):
+        raise AssertionError("two static runs gave different tokens")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"static batch: two runs token-identical, first tokens of each "
+          f"row {runs[0][0][:, :6].tolist()}; peak device memory "
+          f"{peak / 1e9:.3f} GB", flush=True)
+
+    plain, _, plain_counts, plain_s = serve_static(torch, FA, kops, params,
+                                                   use_kernel=False)
+    if any(plain_counts.values()):
+        raise AssertionError(f"the plain route launched {plain_counts}")
+    prompts = static_prompts(cfg)
+    div = route_divergence(torch, FA, cfg, params, prompts)
+    same = float((runs[0][0] == plain).mean())
+    print(f"kernel vs plain route on the card: greedy tokens of the static "
+          f"batch equal in {same:.4f} of {plain.size} (plain route run "
+          f"{plain_s:.3f} s); first-token logits within {LOGIT_REL} at 2 "
+          f"layers ({div[2][0]:.6f}) and {LOGIT_REL_DEEP} at "
+          f"{cfg.n_layers} ({div[cfg.n_layers][0]:.6f})", flush=True)
+    if div[2][0] > LOGIT_REL or div[cfg.n_layers][0] > LOGIT_REL_DEEP:
+        raise AssertionError(f"kernel and plain routes' logits differ: {div}")
+
+    log, on_dispatch = dispatch_recorder(FA)
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    finished, counters, step_times = serve_trace(
+        QWEN, smoke=False, params=params, on_dispatch=on_dispatch, **TRACE)
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    trace_counts = check_launches(kops, log, cfg.n_layers, "serve_trace")
+    if (len(finished) != TRACE["requests"]
+            or any(len(f.tokens) != TRACE["gen"] for f in finished)
+            or counters["prefill_dispatch"] < 2
+            or counters["decode_tokens"]
+            != TRACE["requests"] * (TRACE["gen"] - 1)):
+        raise AssertionError(f"serve_trace: {len(finished)} finished, "
+                             f"counters {counters}")
+    pre = [s for kind, s, _ in log if kind == "prefill"]
+    dec = statistics.median(s for kind, s, _ in log if kind == "decode")
+    print(f"serve_trace {TRACE}: {len(finished)} requests in {trace_s:.3f} s,"
+          f" counters {counters}, launches {trace_counts}, prefill dispatch "
+          f"ms {[round(1e3 * s, 3) for s in pre]}, decode step median "
+          f"{1e3 * dec:.3f}"
+          f" ms; prompt lengths "
+          f"{sorted(f.prompt_len for f in finished)}", flush=True)
+    return dict(cfg=cfg, ops=ops, params=params, param_bytes=param_bytes,
+                runs=runs, peak=peak, counts=runs[0][2], prompts=prompts)
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the card against the CPU
+# ---------------------------------------------------------------------------
+def check_card_vs_cpu(torch):
+    from repro_torch.configs import get
+    from repro_torch.models.api import get_ops
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = dataclasses.replace(get(QWEN), n_layers=2, name="qwen3-14b-2-layers")
+    ops, cpu = get_ops(cfg), get_ops(cfg, device="cpu")
+    params = ops.init(torch.Generator(device="cuda").manual_seed(0))
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(2, 32)).astype(np.int32)
+    t0 = time.perf_counter()
+    card = prefill_logits(torch, ops, params, prompts, True, 64).cpu()
+    host = prefill_logits(torch, cpu, params_cpu, prompts, False, 64)
+    err = (card - host).abs().amax(dim=-1)
+    rel = err / host.abs().amax(dim=-1)
+    top2 = host.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * err
+    agree = card.argmax(-1) == host.argmax(-1)
+    print(f"card (kernel route) vs CPU (plain route), {cfg.name}, prompts "
+          f"{prompts.shape}: prefill logits max |diff| / row max |logit| = "
+          f"{rel.max().item():.6f} (limit {LOGIT_REL}); argmax equal at "
+          f"{int(agree.sum())} of {agree.numel()} positions, required at the "
+          f"{int(decided.sum())} whose CPU top-2 margin exceeds twice the "
+          f"row's max |diff|", flush=True)
+    if not bool((rel <= LOGIT_REL).all()):
+        raise AssertionError("card and CPU prefill logits differ")
+    if not bool(agree[decided].all()):
+        raise AssertionError("card and CPU argmax differ at a decided row")
+
+    streams = []
+    for device, p in (("cuda", params), ("cpu", params_cpu)):
+        eng = ServeEngine(cfg, slots=2, max_seq=64, params=p, device=device)
+        fin = eng.run([Request(rid=i, tokens=prompts[i], max_new=4)
+                       for i in range(2)])
+        streams.append(np.stack([f.tokens for f in fin]))
+    print(f"served 2 x 32 tokens for 4 tokens: card {streams[0].tolist()} "
+          f"CPU {streams[1].tolist()}, equal in "
+          f"{float((streams[0] == streams[1]).mean()):.4f}; phase "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: serving times
+# ---------------------------------------------------------------------------
+def flash_work(A, Hq, Hkv, T, Tk, D):
+    """(operations, bytes) of one causal bf16 flash call at q_offset 0:
+    4·D per visible (query, key) pair; q and out once, k and v up to the
+    last visible key."""
+    pairs = A * Hq * sum(min(Tk, r + 1) for r in range(T))
+    keys = min(Tk, T)
+    return 4 * D * pairs, 2 * (2 * A * Hq * T * D + 2 * A * Hkv * keys * D)
+
+
+def serving_times(torch, F, FA, serving):
+    cfg = serving["cfg"]
+    A, T, Tk = STATIC["batch"], STATIC["prompt_len"], STATIC["max_seq"]
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    g = torch.Generator(device="cuda").manual_seed(99)
+    q, k, v = flash_inputs(torch, g, A, Hq, Hkv, T, Tk, D, torch.bfloat16,
+                           torch.bfloat16)
+    t = time_turns(torch, {
+        "ms": lambda: FA.flash_attention_fwd(q, k, v),
+        "plain_ms": lambda: FA.flash_attention_fwd_plain(q, k, v),
+        "library_ms": lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)}, reps=7, inner=1)
+    n_ops, n_bytes = flash_work(A, Hq, Hkv, T, Tk, D)
+    L = cfg.n_layers
+    row = {key: L * val for key, val in t.items()}
+    row["ops_ms"] = L * n_ops / PEAK_BF16 * 1e3
+    row["bytes_ms"] = L * n_bytes / PEAK_BYTES * 1e3
+    row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+    what = (f"per prefill: {L} x q{tuple(q.shape)} over kv{tuple(k.shape)}, "
+            f"CUDA events, median of 7 single calls x {L}")
+    print(f"time flash_attention_fwd kernel {what}: {row['ms']:.6f} ms "
+          f"({L * n_ops / (row['ms'] * 1e-3) / 1e12:.3f} TFLOP/s)", flush=True)
+    print(f"time flash_attention_fwd plain version {what}: "
+          f"{row['plain_ms']:.6f} ms", flush=True)
+    print(f"time SDPA (is_causal, enable_gqa; a yardstick the port never "
+          f"calls) {what}: {row['library_ms']:.6f} ms", flush=True)
+    print(f"bound flash_attention_fwd per prefill: {row['bound_ms']:.6f} ms "
+          f"by {'operations' if row['ops_ms'] >= row['bytes_ms'] else 'bytes'}"
+          f" ({L} x {n_ops:.4g} ops over the visible causal pairs at 989 "
+          f"TFLOP/s bf16 = {row['ops_ms']:.6f} ms; {L} x {n_bytes:.4g} bytes "
+          f"at 3.35 TB/s = {row['bytes_ms']:.6f} ms); the f32 CUDA-core "
+          f"ceiling (67 TFLOP/s) is {L * n_ops / PEAK_FP32 * 1e3:.6f} ms",
+          flush=True)
+
+    tokens, log, _, seconds = serving["runs"][1]
+    pre = [s for kind, s, _ in log if kind == "prefill"][0]
+    dec = statistics.median(s for kind, s, _ in log if kind == "decode")
+    n_tok = A * T + A * (STATIC["gen"] - 1)
+    weight_ms = serving["param_bytes"] / PEAK_BYTES * 1e3
+    run = (f"{QWEN} static batch, second run, host clock, each dispatch "
+           f"ending on its tokens' copy to the host")
+    print(f"serving prefill dispatch ({run}): {pre * 1e3:.3f} ms for {A} x "
+          f"{T} tokens", flush=True)
+    print(f"serving decode step ({run}): median {dec * 1e3:.3f} ms for {A} "
+          f"rows of {STATIC['gen'] - 1}, against its weight-read bound "
+          f"{weight_ms:.3f} ms ({serving['param_bytes'] / 1e9:.3f} GB at "
+          f"3.35 TB/s)", flush=True)
+    print(f"serving tokens/s ({run}): {A / dec:.3f} generated tokens/s in "
+          f"decode; {n_tok / seconds:.3f} tokens/s prompt and generated over "
+          f"the whole {seconds:.3f} s run", flush=True)
+    print(f"serving peak device memory (torch.cuda.max_memory_allocated over "
+          f"the two static runs): {serving['peak'] / 1e9:.3f} GB", flush=True)
+
+    ops, params = serving["ops"], serving["params"]
+    prompts = serving["prompts"]
+    lens = np.full((A,), T, np.int32)
+    cache, cursors = ops.init_cache(A, Tk), np.full((A,), T, np.int32)
+    for what, one, steps in [
+            ("prefill", lambda: ops.prefill(
+                params, ops.init_cache(A, Tk), prompts, lens, 0,
+                use_kernel=True), 2),
+            ("decode step", lambda: ops.decode(
+                params, cache, prompts[:, :1], cursors), 5)]:
+        prof = profile_steps(torch, one, steps=steps)
+        if prof is None:
+            print(f"{what}: the profiler recorded no device events; device "
+                  f"busy share not measured", flush=True)
+            continue
+        share, by_name, n_kernels = prof
+        print(f"{what} trace (torch.profiler, {steps} calls of {A} rows): "
+              f"device busy {100 * share:.2f} % of the traced span, "
+              f"{n_kernels:.0f} device kernels per call; device ms per call "
+              f"by kernel: " + "; ".join(f"{name[:60]} {ms:.6f}"
+                                         for name, ms in by_name[:10]),
+              flush=True)
+    return row
 
 
 def main() -> int:
@@ -782,7 +1256,7 @@ def main() -> int:
             print(f"B={batch}: the profiler recorded no device events; "
                   f"device busy share not measured", flush=True)
             continue
-        share, by_name = prof
+        share, by_name, _ = prof
         print(f"B={batch}: device busy {100 * share:.2f} % of the traced "
               f"span of 10 steps (torch.profiler); device ms per step by "
               f"kernel: " + "; ".join(f"{name[:60]} {ms:.6f}"
@@ -792,8 +1266,25 @@ def main() -> int:
           f"{kernel_ms:.6f} ms against the {ev_ms:.6f} ms step; the "
           f"optimizer takes {opt_ms:.6f} ms", flush=True)
     torch.cuda.synchronize()
+    del ops, params, batches, calls, opt, grads, opt_state
+    torch.cuda.empty_cache()
 
-    phase("6 result")
+    from repro_torch.kernels import flash_attention as FA
+    phase("6 flash parity against the plain version")
+    flash_err = check_flash_parity(torch, FA)
+    torch.cuda.empty_cache()
+
+    phase(f"7 serving: {QWEN} at full width and full depth on cuda")
+    serving = check_serving(torch, FA, kops)
+
+    phase(f"8 card against CPU: {QWEN} at full width, 2 layers")
+    check_card_vs_cpu(torch)
+
+    phase("9 serving times")
+    flash_row = serving_times(torch, F, FA, serving)
+    torch.cuda.synchronize()
+
+    phase("10 result")
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         row = totals[name]
@@ -805,9 +1296,22 @@ def main() -> int:
             "bound_by": ("operations" if row["ops_ms"] >= row["bytes_ms"]
                          else "bytes"),
             "library_ms": row["library_ms"]})
+    kernels.append({
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:102",
+        "launches": serving["counts"]["flash_attention_fwd"],
+        "max_abs_err": flash_err, "ms": flash_row["ms"],
+        "plain_ms": flash_row["plain_ms"], "bound_ms": flash_row["bound_ms"],
+        "bound_by": ("operations" if flash_row["ops_ms"]
+                     >= flash_row["bytes_ms"] else "bytes"),
+        "library_ms": flash_row["library_ms"]})
     print("kernel times are per chaos-large training step of "
           f"{BATCH} (all of the kernel's launches in one step); launches "
-          f"are those of the {TRAIN_STEPS}-step bsp run; total "
+          f"are those of the {TRAIN_STEPS}-step bsp run; flash_attention_fwd"
+          f"'s time is per {QWEN} prefill of {STATIC['batch']} x "
+          f"{STATIC['prompt_len']} (its {serving['cfg'].n_layers} launches)"
+          f" and its launches those of the first static serving run; total "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,9 @@
 """Architecture config registry of the port.
 
 Each ported architecture lives in its own module exposing ``CONFIG`` and
-``smoke_config()``, as in ``repro.configs``.  Only the paper's three
-Table-2 CNNs are ported so far; every other name raises.
+``smoke_config()``, as in ``repro.configs``.  The paper's three
+Table-2 CNNs and the dense qwen3-14b are ported so far; every other name
+raises.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ _ARCH_MODULES = [
     "chaos_small",
     "chaos_medium",
     "chaos_large",
+    "qwen3_14b",
 ]
 
 

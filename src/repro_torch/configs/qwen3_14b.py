@@ -1,0 +1,20 @@
+"""qwen3-14b: dense 40L d_model=5120 40H (GQA kv=8) d_ff=17408 vocab=151936.
+
+qk_norm enabled. [hf:Qwen/Qwen3-8B; hf]
+"""
+from repro_torch.core.types import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen3-14b", family="dense",
+    n_layers=40, d_model=5120, n_heads=40, n_kv_heads=8, d_head=128,
+    d_ff=17408, vocab_size=151936, qk_norm=True, rope_theta=1e6,
+)
+
+
+def smoke_config() -> ArchConfig:
+    return ArchConfig(
+        name="qwen3-14b-smoke", family="dense",
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
+        d_ff=128, vocab_size=512, qk_norm=True, rope_theta=1e6,
+        scan_layers=False, remat=False,
+    )

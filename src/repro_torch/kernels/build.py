@@ -37,6 +37,7 @@ COMPILE_FLAGS = ARCH_FLAGS + ("-O3", "-std=c++17", "-Xcompiler", "-fPIC")
 LIB_NAME = "librepro_torch.so"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_L, _F = ctypes.c_longlong, ctypes.c_float
 #: The C interface: entry point -> argument types (the stream comes last in
 #: every launching entry point).
 C_API = {
@@ -48,6 +49,8 @@ C_API = {
     "repro_conv2d_bwd_scratch": [_I] * 7,
     "repro_maxpool2d_bwd": [_P] * 4 + [_I] * 5 + [_P],
     "repro_fc_bwd": [_P] * 7 + [_I] * 3 + [_P],
+    "repro_flash_attention_fwd": [_P] * 5 + [_I] * 10 + [_F] + [_L] * 12
+    + [_P],
 }
 
 
@@ -128,9 +131,13 @@ def lib() -> ctypes.CDLL:
     return so
 
 
-def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device):
+def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device,
+          align=None):
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
-    the CUDA ``device``."""
+    the CUDA ``device``.  With ``align`` (bytes) the tensor may be strided
+    instead: its last dim contiguous, its data pointer and every other
+    stride multiples of ``align`` bytes (a kernel that reads through
+    strides with vector loads)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
     if t.device != device or device.type != "cuda":
@@ -141,8 +148,19 @@ def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    if align is None:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        return
+    size = t.element_size()
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name} must be contiguous in its last dim, got "
+                         f"strides {t.stride()}")
+    if t.data_ptr() % align or any(
+            (st * size) % align for st in t.stride()[:-1]):
+        raise ValueError(f"{name}'s data pointer and strides "
+                         f"{t.stride()} (of {size}-byte elements) must be "
+                         f"multiples of {align} bytes")
 
 
 def launch(entry: str, device: torch.device, *args) -> None:

@@ -1,4 +1,5 @@
-"""Model API of the port (counterpart of ``repro.models.api``, cnn part).
+"""Model API of the port (counterpart of ``repro.models.api``; the cnn
+and dense families).
 
     ops = get_ops(cfg)                       # device="cuda" by default
     params = ops.init(torch.Generator().manual_seed(0))
@@ -10,19 +11,30 @@
     spec = ops.bucket_spec()                 # ordered ParamBuckets
     shapes = ops.abstract_params()           # ``meta`` tensors
 
+The dense LM (serving only, so far):
+
+    params = ops.init(torch.Generator(device="cuda").manual_seed(0))
+    cache = ops.init_cache(batch, max_seq)   # bf16, zeros
+    logits, cache = ops.prefill(params, cache, tokens, lengths, 0,
+                                use_kernel=True)
+    logits, cache = ops.decode(params, cache, tokens, cursors)
+
 ``get_ops`` raises when asked for CUDA on a host without a card: the port
 never falls back to the CPU on its own.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.core.types import ArchConfig
-from repro_torch.models import cnn
+from repro_torch.models import cnn, lm
 from repro_torch.models import layers as L
+
+#: The KV cache's dtype, as in the reference (``repro.models.api``).
+CACHE_DTYPE = torch.bfloat16
 
 
 @dataclasses.dataclass
@@ -31,10 +43,14 @@ class ModelOps:
     device: torch.device
     init: Callable
     abstract_params: Callable
-    loss: Callable
-    forward: Callable
-    bucket_spec: Callable
-    loss_and_grads: Callable
+    loss: Optional[Callable] = None
+    forward: Optional[Callable] = None
+    bucket_spec: Optional[Callable] = None
+    loss_and_grads: Optional[Callable] = None
+    init_cache: Optional[Callable] = None
+    abstract_cache: Optional[Callable] = None
+    decode: Optional[Callable] = None
+    prefill: Optional[Callable] = None
 
 
 def validate_bucket_spec(spec, abstract_params: dict) -> None:
@@ -60,7 +76,7 @@ def validate_bucket_spec(spec, abstract_params: dict) -> None:
 
 
 def get_ops(cfg: ArchConfig, device="cuda") -> ModelOps:
-    if cfg.family != "cnn":
+    if cfg.family not in ("cnn", "dense"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not yet ported to repro_torch")
     device = torch.device(device)
@@ -69,6 +85,8 @@ def get_ops(cfg: ArchConfig, device="cuda") -> ModelOps:
             "repro_torch runs on CUDA by default and this host has no CUDA "
             "device; pass device='cpu' to run the plain PyTorch path")
     dtype = getattr(torch, cfg.param_dtype)
+    if cfg.family == "dense":
+        return _lm_ops(cfg, device, dtype)
 
     def to_device(batch):
         return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
@@ -105,4 +123,24 @@ def get_ops(cfg: ArchConfig, device="cuda") -> ModelOps:
             params, torch.as_tensor(images, device=device), cfg),
         bucket_spec=lambda: cnn.bucket_spec(cfg),
         loss_and_grads=loss_and_grads,
+    )
+
+
+def _lm_ops(cfg: ArchConfig, device: torch.device, dtype) -> ModelOps:
+    """The dense LM's serving ops: params, the bf16 KV cache, and the
+    cached forward (``decode`` at an int or per-slot offset, ``prefill``
+    of right-padded prompts)."""
+    return ModelOps(
+        cfg=cfg, device=device,
+        init=lambda generator: lm.build_params(
+            cfg, L.InitFactory(generator, dtype, device)),
+        abstract_params=lambda: lm.build_params(cfg, L.ShapeFactory(dtype)),
+        init_cache=lambda b, s: lm.init_cache(
+            cfg, b, s, L.InitFactory(None, CACHE_DTYPE, device)),
+        abstract_cache=lambda b, s: lm.init_cache(
+            cfg, b, s, L.ShapeFactory(CACHE_DTYPE)),
+        decode=lambda params, cache, tokens, cache_len, **kw: lm.decode_step(
+            params, cache, tokens, cache_len, cfg, **kw),
+        prefill=lambda params, cache, tokens, lengths, cache_len, **kw:
+        lm.prefill_step(params, cache, tokens, lengths, cache_len, cfg, **kw),
     )

@@ -1,0 +1,264 @@
+"""Decoder-only LM of the port, dense GQA family (counterpart of
+``repro.models.lm``): parameters, the KV cache, and the cached forward
+that serving runs (``decode_step`` / ``prefill_step``).
+
+Single parameter layout, as in the reference: per-layer params are stacked
+along a leading ``n_layers`` axis (or per ``layer_chunk`` chunk), so the
+bridge carries a JAX tree across leaf for leaf.  The layers run as a
+Python loop over that axis.
+
+The cache is written in place: ``decode_step`` returns the very dict it was
+given, with rows ``[cache_len, cache_len + T)`` of every layer filled, as
+JAX's donated cache buffers are reused.  The MLA, MoE and VLM families,
+and the uncached forward / loss of training, are not ported yet.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.types import ArchConfig
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.models import layers as L
+
+
+def _require_dense(cfg: ArchConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not yet ported to "
+            f"repro_torch.models.lm (ported: dense)")
+
+
+def _cache_write(buf, new, cache_len, T):
+    """Write ``new`` (B, T, ...) into cache ``buf`` (B, S, ...) in place,
+    starting at ``cache_len``: an int start fills one slice (the uniform
+    prefill path), a (B,) cursor tensor scatters each row at its own
+    position (one decode dispatch over slots at different depths)."""
+    if isinstance(cache_len, torch.Tensor):
+        rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
+        idx = cache_len[:, None] + torch.arange(T, device=buf.device)[None, :]
+        buf[rows, idx] = new.to(buf.dtype)
+    else:
+        buf[:, cache_len:cache_len + T] = new.to(buf.dtype)
+    return buf
+
+
+def _check_capacity(cache_len, T, max_seq):
+    """Fail loudly instead of writing past the cache: ``cache_len`` is a
+    host int or a (B,) host array of cursors."""
+    hi = int(np.max(np.asarray(cache_len)))
+    if hi + T > max_seq:
+        raise ValueError(
+            f"KV-cache overflow: cache_len={hi} + {T} new token(s) exceeds "
+            f"max_seq={max_seq}; the write would run past position "
+            f"{max_seq - 1}. Evict or re-admit the sequence with a larger "
+            f"max_seq (init_cache(batch, max_seq)).")
+
+
+# ---------------------------------------------------------------------------
+# Parameter construction
+# ---------------------------------------------------------------------------
+def _attn_params(cfg: ArchConfig, f, shape0=()):
+    d, dh = cfg.d_model, cfg.d_head
+    Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+    p = {
+        "wq": f.array(shape0 + (d, Hq * dh)),
+        "wk": f.array(shape0 + (d, Hkv * dh)),
+        "wv": f.array(shape0 + (d, Hkv * dh)),
+        "wo": f.array(shape0 + (Hq * dh, d)),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = f.array(shape0 + (dh,), mode="ones")
+        p["k_norm"] = f.array(shape0 + (dh,), mode="ones")
+    return p
+
+
+def _mlp_params(cfg: ArchConfig, f, shape0=()):
+    d, ff = cfg.d_model, cfg.d_ff
+    return {
+        "w_gate": f.array(shape0 + (d, ff)),
+        "w_up": f.array(shape0 + (d, ff)),
+        "w_down": f.array(shape0 + (ff, d)),
+    }
+
+
+def _layer_params(cfg: ArchConfig, f, shape0=()):
+    _require_dense(cfg)
+    return {"ln1": f.array(shape0 + (cfg.d_model,), mode="ones"),
+            "ln2": f.array(shape0 + (cfg.d_model,), mode="ones"),
+            "attn": _attn_params(cfg, f, shape0),
+            "mlp": _mlp_params(cfg, f, shape0)}
+
+
+def n_layer_chunks(cfg: ArchConfig) -> int:
+    """Number of layer-stack chunks under ``cfg.layer_chunk``: 0 and
+    ``n_layers`` both mean one whole-stack chunk (param key ``layers``);
+    any other value must divide ``n_layers``."""
+    c = cfg.layer_chunk
+    if c in (0, cfg.n_layers):
+        return 1
+    if c < 0 or cfg.n_layers % c:
+        raise ValueError(
+            f"layer_chunk={c} must be 0 or a positive divisor of "
+            f"n_layers={cfg.n_layers}")
+    return cfg.n_layers // c
+
+
+def chunk_keys(cfg: ArchConfig) -> tuple:
+    """Top-level param keys holding the layer stack, in production order."""
+    m = n_layer_chunks(cfg)
+    if m == 1:
+        return ("layers",)
+    return tuple(f"layers{i}" for i in range(m))
+
+
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def layer_stack(params: dict, cfg: ArchConfig):
+    """The full ``(n_layers, ...)`` stacked layer tree, concatenating chunk
+    stacks when the params are in a chunked layout."""
+    if "layers" in params:
+        return params["layers"]
+    return _tree_map(lambda *xs: torch.cat(xs, dim=0),
+                     *[params[k] for k in chunk_keys(cfg)])
+
+
+def build_params(cfg: ArchConfig, f):
+    _require_dense(cfg)
+    Vp, d = cfg.padded_vocab, cfg.d_model
+    params = {
+        "embed": f.array((Vp, d), scale=0.02),
+        "final_norm": f.array((d,), mode="ones"),
+    }
+    keys = chunk_keys(cfg)
+    if len(keys) == 1:
+        params["layers"] = _layer_params(cfg, f, (cfg.n_layers,))
+    else:
+        for k in keys:
+            params[k] = _layer_params(cfg, f, (cfg.layer_chunk,))
+    if not cfg.tie_embeddings:
+        params["out_embed"] = f.array((Vp, d), scale=0.02)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Forward pieces
+# ---------------------------------------------------------------------------
+def _gqa_attention(p, x, cfg: ArchConfig, positions, kv_cache, cache_len,
+                   use_kernel: bool = False):
+    """Cached GQA attention; returns (out, (k_cache, v_cache)) with the
+    caches (B, S, Hkv, dh) written in place.  ``cache_len`` is an int (a
+    uniform prefill or decode) or a (B,) cursor tensor (per-slot decode).
+    With ``use_kernel`` and an int ``cache_len`` the attention runs the
+    flash kernel over the cache as it lies (a strided view, no copy);
+    otherwise the plain blockwise ``flash_attention``."""
+    if kv_cache is None:
+        raise NotImplementedError(
+            "the uncached (training) attention is not yet ported to "
+            "repro_torch; serving passes a KV cache")
+    B, T, _ = x.shape
+    dh, Hq, Hkv = cfg.d_head, cfg.n_heads, cfg.n_kv_heads
+    q = (x @ p["wq"]).reshape(B, T, Hq, dh)
+    k = (x @ p["wk"]).reshape(B, T, Hkv, dh)
+    v = (x @ p["wv"]).reshape(B, T, Hkv, dh)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, p["q_norm"])
+        k = L.rms_norm(k, p["k_norm"])
+    q = L.rope(q, positions, cfg.rope_theta)
+    k = L.rope(k, positions, cfg.rope_theta)
+    ck, cv = kv_cache
+    _cache_write(ck, k, cache_len, T)
+    _cache_write(cv, v, cache_len, T)
+    if use_kernel and not isinstance(cache_len, torch.Tensor):
+        o = flash_attention_fwd(
+            q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2),
+            causal=True, q_offset=cache_len).transpose(1, 2)
+    else:
+        o = L.flash_attention(q, ck, cv, causal=True, q_offset=cache_len)
+    o = o.reshape(B, T, Hq * dh)
+    return o @ p["wo"], (ck, cv)
+
+
+def _block(p, x, cfg: ArchConfig, positions, kv_cache, cache_len,
+           use_kernel: bool = False):
+    """One dense block; returns (x, new_kv) (the reference's MoE aux loss
+    is zero for this family and is not carried)."""
+    a, new_kv = _gqa_attention(p["attn"], L.rms_norm(x, p["ln1"]), cfg,
+                               positions, kv_cache, cache_len, use_kernel)
+    x = x + a
+    h = L.rms_norm(x, p["ln2"])
+    x = x + L.swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                     p["mlp"]["w_down"])
+    return x, new_kv
+
+
+def embed_tokens(params, tokens, cfg: ArchConfig):
+    return params["embed"][tokens]
+
+
+def logits_fn(params, x, cfg: ArchConfig):
+    out = params.get("out_embed", params["embed"])
+    return x @ out.T
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int, f):
+    _require_dense(cfg)
+    shp = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
+    return {"k": f.array(shp, mode="zeros"), "v": f.array(shp, mode="zeros")}
+
+
+def _cache_pair(cache, cfg):
+    _require_dense(cfg)
+    return ("k", "v")
+
+
+def decode_step(params, cache, tokens, cache_len, cfg: ArchConfig,
+                use_kernel: bool = False):
+    """Cached forward at absolute cache offset ``cache_len``.
+
+    tokens: (B, T) — T == 1 is one decode step, T > 1 a batched prefill.
+    ``cache_len``: an int (shared offset) or a (B,) host array of per-slot
+    write cursors.  ``use_kernel`` routes the attention of an int offset
+    through the flash kernel.  Returns (logits (B, T, padded_vocab),
+    cache), the cache written in place."""
+    B, T = tokens.shape
+    k1, k2 = _cache_pair(cache, cfg)
+    cl = np.asarray(cache_len)
+    _check_capacity(cl, T, cache[k1].shape[2])
+    device = params["embed"].device
+    tokens = torch.as_tensor(tokens, device=device).long()
+    x = embed_tokens(params, tokens, cfg)
+    steps = torch.arange(T, device=device)
+    if cl.ndim:
+        offset = torch.as_tensor(cl, device=device).long()
+        positions = offset[:, None] + steps[None, :]
+    else:
+        offset = int(cl)
+        positions = (offset + steps)[None, :]
+
+    stack = layer_stack(params, cfg)
+    for i in range(cfg.n_layers):
+        lp = _tree_map(lambda a: a[i], stack)
+        x, _ = _block(lp, x, cfg, positions, (cache[k1][i], cache[k2][i]),
+                      offset, use_kernel)
+    x = L.rms_norm(x, params["final_norm"])
+    return logits_fn(params, x, cfg), cache
+
+
+def prefill_step(params, cache, tokens, lengths, cache_len, cfg: ArchConfig,
+                 use_kernel: bool = False):
+    """Batched prefill: whole (right-padded) prompts in one dispatch.
+    ``lengths`` (B,) true prompt lengths are the caller's bookkeeping: KV
+    written past a row's true length is junk that no later step attends
+    to.  The caller gathers row i's next-token logits at ``lengths[i] -
+    1``."""
+    del lengths
+    return decode_step(params, cache, tokens, cache_len, cfg,
+                       use_kernel=use_kernel)

@@ -5,6 +5,7 @@ on the same numpy weights and batches.  The JAX side runs its XLA path
 versions."""
 import dataclasses
 import functools
+import hashlib
 
 import jax
 import numpy as np
@@ -28,7 +29,7 @@ NETS = ["chaos-small", "chaos-medium", "chaos-large"]
 ATOL, RTOL = 1e-5, 1e-4
 
 
-@pytest.mark.parametrize("name", NETS)
+@pytest.mark.parametrize("name", NETS + ["qwen3-14b"])
 def test_config_equals_reference_field_by_field(name):
     assert (dataclasses.asdict(configs.get(name))
             == dataclasses.asdict(ref_configs.get(name)))
@@ -37,11 +38,12 @@ def test_config_equals_reference_field_by_field(name):
 
 
 def test_list_archs_is_the_ported_part_of_the_reference():
-    assert configs.list_archs() == NETS
+    assert configs.list_archs() == NETS + ["qwen3-14b"]
     assert set(configs.list_archs()) <= set(ref_configs.list_archs())
 
 
-@pytest.mark.parametrize("name", ["qwen3-14b", "lm-bench", "no-such-net"])
+@pytest.mark.parametrize("name", ["mistral-nemo-12b", "lm-bench",
+                                  "no-such-net"])
 def test_other_archs_are_not_yet_ported(name):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         configs.get(name)
@@ -90,6 +92,29 @@ def test_init_scales_zero_biases_and_seed_determinism():
         fan_in = np.prod(layer["w"].shape[:-1])
         # >= 2000 draws per weight tensor: the std is within 10% of the scale
         assert abs(layer["w"].std().item() * np.sqrt(fan_in) - 1) < 0.1
+
+
+#: sha256 over the chaos-small / chaos-large params drawn from
+#: ``torch.Generator().manual_seed(0)`` (keys sorted), as the CPU
+#: generator drew them before ``InitFactory`` learned to draw on a CUDA
+#: generator's own card.
+CPU_DRAW_SHA256 = {
+    "chaos-small":
+    "4687ac074d8b4b5d903e1a63eebedd9b715920e1f02f1214816f7b768cf31859",
+    "chaos-large":
+    "4e0c306e68bc09846f7691e84a5da4d21543add505d34679a5cf37ae28f078ce",
+}
+
+
+@pytest.mark.parametrize("name", sorted(CPU_DRAW_SHA256))
+def test_cpu_generator_draws_the_same_params_as_before(name):
+    ops = api.get_ops(configs.get(name), device="cpu")
+    p = ops.init(torch.Generator().manual_seed(0))
+    h = hashlib.sha256()
+    for k in sorted(p):
+        for kk in sorted(p[k]):
+            h.update(p[k][kk].contiguous().numpy().tobytes())
+    assert h.hexdigest() == CPU_DRAW_SHA256[name]
 
 
 def test_validate_bucket_spec_rejects_a_bad_cover():

@@ -1,6 +1,7 @@
 """Guards of the port's boundaries: it imports nothing of JAX, it runs on
-CUDA unless asked for the CPU, the CPU path launches no kernel, and the
-build refuses to run without nvcc."""
+CUDA unless asked for the CPU, the CPU path launches no kernel, the
+wrappers refuse what their kernels do not take, and the build refuses to
+run without nvcc."""
 import ast
 import os
 import shutil
@@ -15,7 +16,10 @@ import torch
 from repro_torch import configs
 from repro_torch.data.mnist import make_dataset
 from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.serve import serve, serve_trace
+from repro_torch.serve.engine import ServeEngine
 from repro_torch.core.chaos import SyncConfig
 from repro_torch.models import api
 from repro_torch.train.step import (init_train_state, make_superstep,
@@ -75,7 +79,62 @@ def test_cpu_path_leaves_every_launch_count_at_zero(name):
     assert kops.launch_counts() == {
         "conv2d_fwd": 0, "maxpool2d_fwd": 0, "fc_fwd": 0,
         "softmax_xent_fwd": 0, "conv2d_bwd_fused": 0, "maxpool2d_bwd": 0,
-        "fc_bwd_fused": 0}
+        "fc_bwd_fused": 0, "flash_attention_fwd": 0}
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_cpu_serving_leaves_every_launch_count_at_zero(use_kernel):
+    kops.reset_launch_counts()
+    tokens = serve("qwen3-14b", batch=2, prompt_len=9, gen=3, max_seq=16,
+                   use_kernel=use_kernel, device="cpu")
+    assert tokens.shape == (2, 3)
+    assert set(kops.launch_counts().values()) == {0}
+
+
+def test_serving_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.get_ops(configs.smoke("qwen3-14b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine("qwen3-14b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve("qwen3-14b", batch=1, prompt_len=4, gen=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_trace("qwen3-14b", requests=1)
+
+
+@pytest.mark.parametrize("kw", [{"temperature": 0.7},
+                                {"tracer": object()}, {"bus": object()}],
+                         ids=["temperature", "tracer", "bus"])
+def test_unported_serving_options_raise(kw):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        ServeEngine("qwen3-14b", device="cpu", **kw)
+    if "temperature" in kw:
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            serve("qwen3-14b", device="cpu", **kw)
+
+
+def test_flash_kernel_wrapper_raises_on_what_the_kernel_does_not_take(
+        monkeypatch):
+    """The CUDA branch's checks, reached with meta tensors standing in for
+    CUDA ones: a CPU tensor takes the plain version, anything else is
+    checked and refused before any build or launch."""
+    monkeypatch.setattr(build, "launch", lambda *a: pytest.fail("launched"))
+    meta = lambda *s, dt=torch.bfloat16: torch.empty(s, dtype=dt,
+                                                     device="meta")
+    q, k = meta(1, 4, 8, 128), meta(1, 2, 16, 128)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention_fwd(meta(1, 4, 8, 24), meta(1, 2, 16, 24),
+                               meta(1, 2, 16, 24))
+    with pytest.raises(ValueError, match="Dv == D"):
+        FA.flash_attention_fwd(q, k, meta(1, 2, 16, 64))
+    with pytest.raises(ValueError, match="cannot attend"):
+        FA.flash_attention_fwd(meta(1, 3, 8, 128), k, k)
+    with pytest.raises(TypeError, match="compiled pair"):
+        FA.flash_attention_fwd(q, meta(1, 2, 16, 128, dt=torch.float32),
+                               meta(1, 2, 16, 128, dt=torch.float32))
+    with pytest.raises(ValueError, match="expected"):
+        FA.flash_attention_fwd(q, k, k)  # meta is no CUDA device
 
 
 def test_build_refuses_to_run_without_nvcc(monkeypatch, tmp_path):
@@ -98,7 +157,7 @@ def test_build_dir_is_keyed_by_the_sources(monkeypatch, tmp_path):
     assert build.build_dir() != before
     assert [p.name for p in build.sources()] == [
         "conv2d.cu", "conv2d_bwd.cu", "errors.cu", "fc.cu", "fc_bwd.cu",
-        "pool.cu", "pool_bwd.cu", "softmax_xent.cu"]
+        "flash_attention.cu", "pool.cu", "pool_bwd.cu", "softmax_xent.cu"]
 
 
 def test_c_api_names_every_entry_point_of_the_sources():
