@@ -57,8 +57,29 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
 9. Serving times: the flash kernel per prefill (40 launches) against its
    plain version, SDPA (a yardstick the port never calls) and its bound;
    prefill dispatch, decode step against its weight-read bound, tokens/s,
-   peak memory, and one torch.profiler trace of a prefill.
-10. Result lines: ``nvidia-smi``'s name and power limit, one JSON object of
+   peak memory, and one torch.profiler trace of a prefill.  The serving
+   weights are then freed.
+10. Flash backward parity: the backward kernel against its plain version
+    on the card at qwen3-14b's training shape (B=2, T=2048, Hq 40 over Hkv
+    8, D=128, bf16, causal) and at edge shapes (D=16, 32, 64 and 128, G=1,
+    T no tile multiple, f32, not causal).
+11. LM training: qwen3-14b at full width cut to 4 layers (weights from
+    ``torch.Generator("cuda").manual_seed(0)``, remat on, AdamW with f32
+    moments) on ``TokenPipeline(vocab_size=151936, batch=2, seq_len=2048,
+    seed=0)`` through ``init_train_state`` and ``make_train_step`` /
+    ``make_superstep``: 8 bsp steps twice (bit-identical), counts from 0
+    around each step (exactly 8 ``flash_attention_fwd`` launches, the
+    forward's and the remat recompute's, and 4 ``flash_attention_bwd``
+    launches), first loss near ln V, peak memory, step ms by CUDA events,
+    one torch.profiler trace of a step; then one chaos τ=1 superstep of 8.
+12. LM training times: the forward and backward kernels per call and per
+    step at the training shape against the backward's plain version, SDPA's
+    backward (a yardstick the port never calls) and the backward's bound.
+13. Routes and card against CPU: qwen3-14b at full width cut to 2 layers,
+    one batch of 1 x 256: the loss and each bucket's gradient norm of the
+    kernel route on the card against the plain route on the card and
+    against the default route on the CPU.
+14. Result lines: ``nvidia-smi``'s name and power limit, one JSON object of
     the kernels, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -139,6 +160,35 @@ LOGIT_REL = 2e-2
 #: at 1, on an H100 80GB HBM3 at 700 W (this script's depth sweep; PERF.md
 #: keeps the numbers).
 LOGIT_REL_DEEP = 0.1
+#: The LM training cell: qwen3-14b at full width, depth cut to fit one
+#: 80 GB card with its AdamW state; the data pipeline's arguments.
+LM_LAYERS = 4
+LM_DATA = dict(batch=2, seq_len=2048, seed=0)
+LM_STEPS = 8
+#: The routes and card-vs-CPU check: depth, batch, sequence length.
+LM_CHECK = dict(layers=2, batch=1, seq_len=256)
+#: Flash backward against its plain version on the card.  A bf16 output
+#: within one bf16 ulp (both round f32 sums taken in another order: the
+#: plain version's 1024-key blocks against the kernel's 64-key tiles) or,
+#: where the sum cancels to near zero and one ulp is far below the f32
+#: sums' rounding, within FLASH_BWD_BF16_FLOOR of the output's max |plain|
+#: (an output is a sum of up to T·G terms of that size; on an H100 80GB
+#: HBM3 at 700 W the training shape's near-zero dq entries sat up to 2.2e-7
+#: of it apart, thousands of bf16 ulps at their size); an f32 output within
+#: atol + rtol * max |plain|.
+FLASH_BWD_BF16_FLOOR = 1e-5
+FLASH_BWD_F32_TOL = (1e-5, 1e-4)
+#: A random-weight first loss sits about σ²/2 above ln V, with σ² =
+#: d_model · 0.02² ≈ 2.05 the variance of a logit of the unit-RMS hidden
+#: state against the 0.02-scale output embedding.
+LM_FIRST_LOSS_SLACK = 2.0
+#: Routes and card against CPU at 2 layers (bf16 weights and activations,
+#: rounded at other places by the two routes' attention and by cuBLAS
+#: against the CPU): the loss within LM_LOSS_REL of its size, each bucket's
+#: gradient norm within LM_NORM_REL of its size (both measured near 1.5e-4
+#: on an H100 80GB HBM3 at 700 W).
+LM_LOSS_REL = 1e-3
+LM_NORM_REL = 2e-3
 #: Launches of one chaos-large eval batch (its 1x1 pool issues none).
 LARGE_PER_BATCH = {"conv2d_fwd": 3, "maxpool2d_fwd": 2, "fc_fwd": 2,
                    "softmax_xent_fwd": 1}
@@ -695,8 +745,8 @@ def profile_steps(torch, one, steps: int = 10):
     """Device activity over ``steps`` calls of ``one`` in a torch.profiler
     trace: (busy share of the span from the first kernel's start to the
     last one's end, device ms per step by kernel name, largest first,
-    device kernels per step), or None when the trace holds no device
-    events."""
+    device kernels per step, launches per step by kernel name), or None
+    when the trace holds no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -712,13 +762,14 @@ def profile_steps(torch, one, steps: int = 10):
     start = min(e.time_range.start for e in kernels)
     end = max(e.time_range.end for e in kernels)
     busy = sum(e.time_range.elapsed_us() for e in kernels)
-    by_name = {}
+    by_name, counts = {}, {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             e.time_range.elapsed_us() / steps / 1e3
+        counts[e.name] = counts.get(e.name, 0) + 1 / steps
     return (busy / (end - start),
             sorted(by_name.items(), key=lambda kv: -kv[1]),
-            len(kernels) / steps)
+            len(kernels) / steps, counts)
 
 
 # ---------------------------------------------------------------------------
@@ -1125,7 +1176,7 @@ def serving_times(torch, F, FA, serving):
             print(f"{what}: the profiler recorded no device events; device "
                   f"busy share not measured", flush=True)
             continue
-        share, by_name, n_kernels = prof
+        share, by_name, n_kernels, _ = prof
         print(f"{what} trace (torch.profiler, {steps} calls of {A} rows): "
               f"device busy {100 * share:.2f} % of the traced span, "
               f"{n_kernels:.0f} device kernels per call; device ms per call "
@@ -1133,6 +1184,391 @@ def serving_times(torch, F, FA, serving):
                                          for name, ms in by_name[:10]),
               flush=True)
     return row
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: flash backward parity
+# ---------------------------------------------------------------------------
+def flash_bwd_inputs(torch, FA, g, B, T, Hq, Hkv, D, dtype, causal):
+    """q, k, v and dout in the model's (B, T, H, D) layout, and out and lse
+    from the forward kernel on them."""
+    q = torch.randn(B, T, Hq, D, generator=g, device="cuda").to(dtype)
+    k = torch.randn(B, T, Hkv, D, generator=g, device="cuda").to(dtype)
+    v = torch.randn(B, T, Hkv, D, generator=g, device="cuda").to(dtype)
+    dout = torch.randn(B, T, Hq, D, generator=g, device="cuda").to(dtype)
+    out, lse = FA.flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
+                                      v.transpose(1, 2), causal=causal,
+                                      return_lse=True)
+    return q, k, v, out.transpose(1, 2), lse, dout
+
+
+def check_flash_bwd_parity(torch, FA) -> float:
+    g = torch.Generator(device="cuda").manual_seed(2468)
+    bf, f32 = torch.bfloat16, torch.float32
+    worst = 0.0
+    for (label, B, T, Hq, Hkv, D, dtype, causal) in [
+            ("qwen3-14b training", 2, 2048, 40, 8, 128, bf, True),
+            ("D=16, G=2, T=100", 2, 100, 4, 2, 16, bf, True),
+            ("D=32, G=1, T=100, f32, not causal", 1, 100, 2, 2, 32, f32,
+             False),
+            ("D=64, G=1, T=100, f32", 2, 100, 3, 3, 64, f32, True),
+            ("D=64, G=3, T=130, not causal", 1, 130, 6, 2, 64, bf, False),
+            ("D=128, G=5, T=70, f32", 1, 70, 10, 2, 128, f32, True)]:
+        args = flash_bwd_inputs(torch, FA, g, B, T, Hq, Hkv, D, dtype, causal)
+        got = FA.flash_attention_bwd(*args, causal=causal)
+        want = FA.flash_attention_bwd_plain(*args, causal=causal)
+        torch.cuda.synchronize()
+        shape = (f"q{(B, T, Hq, D)} kv{(B, T, Hkv, D)} {str(dtype)[6:]} "
+                 f"causal={causal}")
+        errs = []
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"flash bwd {label} {name}: {a.shape} "
+                                     f"{a.dtype} vs plain {b.shape} {b.dtype}")
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"flash bwd {label} {name}: non-finite")
+            diff = (a.float() - b.float()).abs()
+            top = b.float().abs().max().item()
+            if dtype == torch.bfloat16:
+                ulps = bf16_ulps(torch, a, b)
+                bad = (ulps > 1) & (diff > FLASH_BWD_BF16_FLOOR * top)
+                tol = (f"1 bf16 ulp or {FLASH_BWD_BF16_FLOOR} x max |plain|;"
+                       f" {int((ulps > 1).sum())} beyond 1 ulp, max "
+                       f"{int(ulps.max())} ulps")
+            else:
+                atol, rtol = FLASH_BWD_F32_TOL
+                bad = diff > atol + rtol * top
+                tol = f"atol {atol} + rtol {rtol} x max |plain|"
+            if bool(bad.any()):
+                i = bad.nonzero()[0].tolist()
+                raise AssertionError(
+                    f"flash bwd {label} {shape} {name}: {int(bad.sum())} "
+                    f"outputs beyond {tol}, first at {i}: kernel "
+                    f"{a[tuple(i)].item()!r} plain {b[tuple(i)].item()!r}")
+            errs.append(f"{name} {diff.max().item():.3e} of max |plain| "
+                        f"{top:.3e} ({tol})")
+            worst = max(worst, diff.max().item())
+        print(f"parity flash_attention_bwd {label} {shape}: max_abs_err "
+              + "; ".join(errs), flush=True)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: LM training at full width
+# ---------------------------------------------------------------------------
+def lm_cfg(n_layers):
+    from repro_torch.configs import get
+
+    return dataclasses.replace(get(QWEN), n_layers=n_layers,
+                               name=f"{QWEN}-{n_layers}-layers")
+
+
+def lm_per_step(cfg) -> dict:
+    """Launches of one training step: the forward kernel once per layer in
+    the forward and once more in the remat recompute, the backward kernel
+    once per layer."""
+    return {"flash_attention_fwd": (2 if cfg.remat else 1) * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
+
+
+def lm_train_run(torch, kops, launch_trace, cfg, sync, batches,
+                 superstep=False):
+    """Train from a fresh state (``torch.Generator("cuda").manual_seed(0)``)
+    over ``batches``, one step per batch or one superstep over all; counts
+    from 0 just before, checked just after.  Returns (state, losses,
+    counts, step ms by CUDA events)."""
+    from repro_torch.train.step import (init_train_state, make_superstep,
+                                        make_train_step)
+
+    state = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             sync, device="cuda")
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    traces, losses, events = [], [], []
+    if superstep:
+        stacked = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+        # hand the state over without keeping a reference here, so each of
+        # the superstep's steps holds only its input and output states
+        box = [state]
+        del state
+        with launch_trace() as trace:
+            state, m = make_superstep(cfg, sync)(box.pop(), stacked)
+        traces.append(list(trace))
+        losses = m["loss"].tolist()
+    else:
+        step = make_train_step(cfg, sync)
+        for b in batches:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            with launch_trace() as trace:
+                state, m = step(state, b)
+            ev[1].record()
+            events.append(ev)
+            traces.append(list(trace))
+            losses.append(m["loss"])
+        losses = torch.stack(losses).tolist()
+    torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    per_step = lm_per_step(cfg)
+    want = {k: per_step.get(k, 0) * len(batches) for k in counts}
+    if counts != want:
+        raise AssertionError(f"{cfg.name} {sync}: launches {counts}, "
+                             f"expected {want}")
+    steps_per_call = len(batches) // len(traces)
+    for t in traces:
+        if len(t) != sum(per_step.values()) * steps_per_call:
+            raise AssertionError(f"{cfg.name}: one call launched {t}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{cfg.name} {sync}: non-finite losses {losses}")
+    ms = [a.elapsed_time(b) for a, b in events]
+    return state, losses, counts, ms
+
+
+def lm_batches(torch, cfg, n, **data):
+    from repro_torch.data.pipeline import TokenPipeline
+
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, **data)
+    return [{k: torch.as_tensor(v, device="cuda")
+             for k, v in pipe.batch_at(t).items()} for t in range(n)]
+
+
+def check_lm_training(torch, kops, launch_trace):
+    """Phase 11; returns what the result line and phase 12 read."""
+    from repro_torch.core.chaos import SyncConfig
+    from repro_torch.kernels.flash_attention import BWD_KERNELS_PER_CALL
+
+    cfg = lm_cfg(LM_LAYERS)
+    batches = lm_batches(torch, cfg, LM_STEPS, **LM_DATA)
+    tokens = LM_DATA["batch"] * LM_DATA["seq_len"]
+    bsp = SyncConfig("bsp")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, losses, counts, ms = lm_train_run(torch, kops, launch_trace, cfg,
+                                             bsp, batches)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    print(f"train {cfg.name}: {n_params} params (bf16), AdamW f32 moments, "
+          f"remat {cfg.remat}; {LM_STEPS} bsp steps of {LM_DATA['batch']} x "
+          f"{LM_DATA['seq_len']} tokens in {seconds:.3f} s, losses {losses}, "
+          f"launches {counts}; peak device memory "
+          f"{peak / 1e9:.3f} GB", flush=True)
+    ln_v = math.log(cfg.vocab_size)
+    if abs(losses[0] - ln_v) > LM_FIRST_LOSS_SLACK:
+        raise AssertionError(f"first loss {losses[0]} is not near ln V = "
+                             f"{ln_v:.4f} (slack {LM_FIRST_LOSS_SLACK})")
+    params_a = state["params"]
+    del state
+    state, again, _, ms_b = lm_train_run(torch, kops, launch_trace, cfg, bsp,
+                                         batches)
+    same = again == losses and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(params_a),
+                                          tree_leaves(state["params"])))
+    if not same:
+        raise AssertionError(f"two bsp runs differ: losses {losses} vs "
+                             f"{again}")
+    del params_a
+    step_ms = statistics.median(ms[1:] + ms_b[1:])
+    print(f"train {cfg.name}: two bsp runs bit-identical; step "
+          f"{step_ms:.3f} ms (CUDA events, median of steps 2-{LM_STEPS} of "
+          f"both runs), {tokens / step_ms * 1e3:.1f} tokens/s; first loss "
+          f"{losses[0]:.6f} against ln V = {ln_v:.6f}", flush=True)
+
+    from repro_torch.train.step import make_train_step
+    step = make_train_step(cfg, bsp)
+    box = [state]
+    del state
+
+    def one():
+        box[0], _ = step(box[0], batches[0])
+
+    prof = profile_steps(torch, one, steps=2)
+    if prof is None:
+        raise AssertionError("LM training step: the profiler recorded no "
+                             "device events; the backward's device kernels "
+                             "per call cannot be counted")
+    busy, by_name, n_kernels, kernel_counts = prof
+    groups = {}
+    for name, v in by_name:
+        key = ("flash_bwd_dkdv" if "flash_bwd_dkdv" in name else
+               "flash_bwd_dq" if "flash_bwd_dq" in name else
+               "flash_fwd" if "flash_fwd" in name else
+               "GEMM" if any(w in name.lower() for w in
+                             ("nvjet", "gemm", "cutlass", "sm90_"))
+               else "other (elementwise, reductions, copies)")
+        groups[key] = groups.get(key, 0.0) + v
+    print(f"LM training step trace (torch.profiler, 2 steps): device "
+          f"busy {100 * busy:.2f} % of the traced span, {n_kernels:.0f} "
+          f"device kernels per step; device ms per step by group: "
+          + "; ".join(f"{k} {v:.6f}" for k, v in sorted(
+              groups.items(), key=lambda kv: -kv[1]))
+          + "; by kernel: "
+          + "; ".join(f"{name[:60]} {v:.6f}" for name, v in by_name[:14]),
+          flush=True)
+    bwd = sum(n for name, n in kernel_counts.items()
+              if "flash_bwd_" in name)
+    per_call = bwd / lm_per_step(cfg)["flash_attention_bwd"]
+    print(f"LM training step trace: {bwd:g} flash backward device "
+          f"kernels per step, {per_call:g} per flash_attention_bwd call",
+          flush=True)
+    if per_call != BWD_KERNELS_PER_CALL:
+        raise AssertionError(f"one flash_attention_bwd call ran "
+                             f"{per_call} device kernels, expected "
+                             f"{BWD_KERNELS_PER_CALL}")
+    del box
+    torch.cuda.empty_cache()
+
+    chaos = SyncConfig("chaos", staleness=1)
+    state, c_losses, c_counts, _ = lm_train_run(
+        torch, kops, launch_trace, cfg, chaos, batches, superstep=True)
+    print(f"train {cfg.name}: one chaos tau=1 superstep of {LM_STEPS}, "
+          f"losses {c_losses}, launches {c_counts}", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return dict(cfg=cfg, counts=counts, peak=peak, step_ms=step_ms,
+                tokens=tokens, busy=busy, losses=losses)
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: LM training times
+# ---------------------------------------------------------------------------
+def flash_bwd_work(B, T, Hq, Hkv, D):
+    """(operations, bytes) of one causal bf16 flash backward at q_offset 0:
+    10·D per visible (query, key) pair (s, dp, dv, dq, dk); q, out, dout,
+    dq, k, v, dk and dv once, lse once."""
+    pairs = B * Hq * T * (T + 1) // 2
+    return (10 * D * pairs,
+            2 * B * T * D * (4 * Hq + 4 * Hkv) + 4 * B * Hq * T)
+
+
+def lm_training_times(torch, F, FA, cfg):
+    B, T = LM_DATA["batch"], LM_DATA["seq_len"]
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    g = torch.Generator(device="cuda").manual_seed(77)
+    q, k, v, out, lse, dout = flash_bwd_inputs(
+        torch, FA, g, B, T, Hq, Hkv, D, torch.bfloat16, True)
+    q4, k4, v4 = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    do4 = dout.transpose(1, 2)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                           enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                           enable_gqa=True)
+        torch.autograd.grad(o, (q4, k4, v4), do4)
+
+    t = time_turns(torch, {
+        "fwd": lambda: FA.flash_attention_fwd(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            return_lse=True),
+        "ms": lambda: FA.flash_attention_bwd(q, k, v, out, lse, dout),
+        "plain_ms": lambda: FA.flash_attention_bwd_plain(q, k, v, out, lse,
+                                                         dout),
+        "sdpa_fwd": sdpa_fwd, "sdpa_fwd_bwd": sdpa_fwd_bwd}, reps=7, inner=1)
+    n_ops, n_bytes = flash_bwd_work(B, T, Hq, Hkv, D)
+    per = lm_per_step(cfg)
+    nb, nf = per["flash_attention_bwd"], per["flash_attention_fwd"]
+    row = {"ms": nb * t["ms"], "plain_ms": nb * t["plain_ms"],
+           "library_ms": nb * (t["sdpa_fwd_bwd"] - t["sdpa_fwd"]),
+           "ops_ms": nb * n_ops / PEAK_BF16 * 1e3,
+           "bytes_ms": nb * n_bytes / PEAK_BYTES * 1e3}
+    row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+    what = (f"q{(B, T, Hq, D)} kv{(B, T, Hkv, D)} bf16 causal, CUDA events, "
+            f"median of 7 single calls")
+    print(f"time flash_attention_fwd with LSE, training shape {what}: "
+          f"{t['fwd']:.6f} ms per call, {nf * t['fwd']:.6f} ms per step "
+          f"({nf} calls)", flush=True)
+    print(f"time flash_attention_bwd kernel {what}: {t['ms']:.6f} ms per "
+          f"call ({n_ops / (t['ms'] * 1e-3) / 1e12:.3f} TFLOP/s), "
+          f"{row['ms']:.6f} ms per step ({nb} calls)", flush=True)
+    print(f"time flash_attention_bwd plain version {what}: "
+          f"{t['plain_ms']:.6f} ms per call, {row['plain_ms']:.6f} ms per "
+          f"step", flush=True)
+    print(f"time SDPA backward (is_causal, enable_gqa, through autograd, "
+          f"minus its forward; a yardstick the port never calls) {what}: "
+          f"{t['sdpa_fwd_bwd'] - t['sdpa_fwd']:.6f} ms per call (forward "
+          f"{t['sdpa_fwd']:.6f} ms), {row['library_ms']:.6f} ms per step",
+          flush=True)
+    print(f"bound flash_attention_bwd per call: "
+          f"{row['bound_ms'] / nb:.6f} ms by "
+          f"{'operations' if row['ops_ms'] >= row['bytes_ms'] else 'bytes'} "
+          f"({n_ops:.6g} ops over the visible causal pairs at 989 TFLOP/s "
+          f"bf16 = {row['ops_ms'] / nb:.6f} ms; {n_bytes:.6g} bytes at 3.35 "
+          f"TB/s = {row['bytes_ms'] / nb:.6f} ms); the f32 CUDA-core ceiling "
+          f"(67 TFLOP/s) is {n_ops / PEAK_FP32 * 1e3:.6f} ms", flush=True)
+    row["fwd_ms"] = t["fwd"]
+    del q, k, v, out, lse, dout, q4, k4, v4, do4
+    torch.cuda.empty_cache()
+
+    from repro_torch.core.chaos import SyncConfig
+    from repro_torch.train.step import init_train_state, make_optimizer
+
+    opt = make_optimizer(cfg)
+    state = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             SyncConfig("bsp"), opt, device="cuda")
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=g,
+                                           device="cuda").to(p.dtype) * 1e-3,
+                     state["params"])
+    opt_ms = time_turns(torch, {"opt": lambda: opt.apply(
+        state["params"], grads, state["opt"], 0)}, reps=3, inner=1)["opt"]
+    n = sum(t.numel() for t in tree_leaves(state["params"]))
+    print(f"optimizer apply (AdamW with global-norm clip, f32 moments, {n} "
+          f"params): {opt_ms:.6f} ms (CUDA events, median of 3)", flush=True)
+    del state, grads
+    torch.cuda.empty_cache()
+    row["opt_ms"] = opt_ms
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: routes and card against CPU at 2 layers
+# ---------------------------------------------------------------------------
+def bucket_norms(torch, spec, grads):
+    return {b.name: math.sqrt(sum(float(t.float().square().sum())
+                                  for t in tree_leaves(b.view(grads))))
+            for b in spec}
+
+
+def check_lm_routes(torch):
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.api import get_ops
+
+    cfg = lm_cfg(LM_CHECK["layers"])
+    ops, cpu = get_ops(cfg), get_ops(cfg, device="cpu")
+    params = ops.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = TokenPipeline(cfg.vocab_size, LM_CHECK["batch"],
+                          LM_CHECK["seq_len"], seed=1).batch_at(0)
+    spec = ops.bucket_spec()
+    runs = {}
+    for label, o, p, kw in [
+            ("card, kernel route", ops, params, dict(use_kernel=True)),
+            ("card, plain route", ops, params, dict(use_kernel=False)),
+            ("CPU, default route", cpu, None, {})]:
+        t0 = time.perf_counter()
+        if p is None:
+            p = tree_map(lambda t: t.cpu(), params)
+        loss, _, grads = o.loss_and_grads(p, batch, **kw)
+        runs[label] = (loss.item(), bucket_norms(torch, spec, grads))
+        print(f"{cfg.name}, batch {LM_CHECK['batch']} x "
+              f"{LM_CHECK['seq_len']}, {label}: loss {runs[label][0]:.6f}, "
+              f"bucket gradient norms {runs[label][1]}, "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        del grads
+    ref_loss, ref_norms = runs["card, kernel route"]
+    for label in ("card, plain route", "CPU, default route"):
+        loss, norms = runs[label]
+        dl = abs(loss - ref_loss) / abs(loss)
+        dn = max(abs(norms[k] - ref_norms[k]) / norms[k] for k in norms)
+        print(f"card kernel route vs {label}: loss differs by {dl:.3e} of "
+              f"its size (limit {LM_LOSS_REL}), bucket gradient norms by up "
+              f"to {dn:.3e} (limit {LM_NORM_REL})", flush=True)
+        if dl > LM_LOSS_REL or dn > LM_NORM_REL:
+            raise AssertionError(f"card kernel route and {label} differ")
 
 
 def main() -> int:
@@ -1256,7 +1692,7 @@ def main() -> int:
             print(f"B={batch}: the profiler recorded no device events; "
                   f"device busy share not measured", flush=True)
             continue
-        share, by_name, _ = prof
+        share, by_name, _, _ = prof
         print(f"B={batch}: device busy {100 * share:.2f} % of the traced "
               f"span of 10 steps (torch.profiler); device ms per step by "
               f"kernel: " + "; ".join(f"{name[:60]} {ms:.6f}"
@@ -1283,8 +1719,27 @@ def main() -> int:
     phase("9 serving times")
     flash_row = serving_times(torch, F, FA, serving)
     torch.cuda.synchronize()
+    serve_counts = serving["counts"]
+    del serving
+    torch.cuda.empty_cache()
 
-    phase("10 result")
+    phase("10 flash backward parity against the plain version")
+    bwd_err = check_flash_bwd_parity(torch, FA)
+    torch.cuda.empty_cache()
+
+    phase(f"11 LM training: {QWEN} at full width, {LM_LAYERS} layers, on "
+          f"cuda")
+    training = check_lm_training(torch, kops, launch_trace)
+
+    phase("12 LM training times")
+    bwd_row = lm_training_times(torch, F, FA, training["cfg"])
+    torch.cuda.empty_cache()
+
+    phase(f"13 routes and card against CPU: {QWEN} at full width, "
+          f"{LM_CHECK['layers']} layers")
+    check_lm_routes(torch)
+
+    phase("14 result")
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         row = totals[name]
@@ -1300,18 +1755,35 @@ def main() -> int:
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:102",
-        "launches": serving["counts"]["flash_attention_fwd"],
+        "launches": serve_counts["flash_attention_fwd"],
         "max_abs_err": flash_err, "ms": flash_row["ms"],
         "plain_ms": flash_row["plain_ms"], "bound_ms": flash_row["bound_ms"],
         "bound_by": ("operations" if flash_row["ops_ms"]
                      >= flash_row["bytes_ms"] else "bytes"),
         "library_ms": flash_row["library_ms"]})
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:227",
+        "launches": training["counts"]["flash_attention_bwd"],
+        "max_abs_err": bwd_err, "ms": bwd_row["ms"],
+        "plain_ms": bwd_row["plain_ms"], "bound_ms": bwd_row["bound_ms"],
+        "bound_by": ("operations" if bwd_row["ops_ms"] >= bwd_row["bytes_ms"]
+                     else "bytes"),
+        "library_ms": bwd_row["library_ms"]})
+    lm = training["cfg"]
     print("kernel times are per chaos-large training step of "
           f"{BATCH} (all of the kernel's launches in one step); launches "
           f"are those of the {TRAIN_STEPS}-step bsp run; flash_attention_fwd"
           f"'s time is per {QWEN} prefill of {STATIC['batch']} x "
-          f"{STATIC['prompt_len']} (its {serving['cfg'].n_layers} launches)"
-          f" and its launches those of the first static serving run; total "
+          f"{STATIC['prompt_len']} (its 40 launches) and its launches those "
+          f"of the first static serving run; flash_attention_bwd's time is "
+          f"per {lm.name} training step of {LM_DATA['batch']} x "
+          f"{LM_DATA['seq_len']} (its {lm.n_layers} launches) and its "
+          f"launches those of the first {LM_STEPS}-step bsp run; LM training "
+          f"step {training['step_ms']:.3f} ms, "
+          f"{training['tokens'] / training['step_ms'] * 1e3:.1f} tokens/s, "
+          f"peak {training['peak'] / 1e9:.3f} GB; total "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

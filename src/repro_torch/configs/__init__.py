@@ -2,8 +2,8 @@
 
 Each ported architecture lives in its own module exposing ``CONFIG`` and
 ``smoke_config()``, as in ``repro.configs``.  The paper's three
-Table-2 CNNs and the dense qwen3-14b are ported so far; every other name
-raises.
+Table-2 CNNs, the dense qwen3-14b and the dense lm-bench net are ported
+so far; every other name raises.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ _ARCH_MODULES = [
     "chaos_medium",
     "chaos_large",
     "qwen3_14b",
+    "lm_bench",
 ]
 
 

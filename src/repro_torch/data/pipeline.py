@@ -1,5 +1,7 @@
-"""Deterministic image pipeline (numpy-only copy of ``repro.data.pipeline``).
+"""Deterministic data pipelines (numpy-only copy of ``repro.data.pipeline``).
 
+- ``TokenPipeline``: synthetic LM token stream (zipfian unigrams with a
+  deterministic bigram successor table, so a model can reduce its loss).
 - ``ImagePipeline``: batches over the synthetic MNIST arrays, with the
   paper's "workers pick the next image" global-queue semantics (each worker
   takes every k-th sample — no static partitioning).
@@ -10,7 +12,7 @@
 
 Every draw goes through ``np.random.SeedSequence`` exactly as the JAX
 package's pipeline does, so both give the same batches bit for bit
-(tests/test_torch_data.py).  ``TokenPipeline`` comes with the LM slice.
+(tests/test_torch_data.py, tests/test_torch_lm_train.py).
 """
 from __future__ import annotations
 
@@ -38,6 +40,42 @@ def worker_slice(stacked: dict, batch: int, n_workers: int, worker: int):
     per = batch // n_workers
     lo = worker * per
     return {k: v[:, lo:lo + per] for k, v in stacked.items()}
+
+
+@dataclasses.dataclass
+class TokenPipeline:
+    vocab_size: int
+    batch: int
+    seq_len: int
+    seed: int = 0
+
+    def _rng(self, step: int):
+        return np.random.default_rng(
+            np.random.SeedSequence([self.seed, step]))
+
+    def batch_at(self, step: int):
+        """Deterministic batch for ``step``: int32 ``tokens`` (B, T) and
+        ``labels``, the tokens shifted left by one (wrapping)."""
+        rng = self._rng(step)
+        B, T, V = self.batch, self.seq_len, self.vocab_size
+        base = rng.zipf(1.3, size=(B, T)).astype(np.int64) % V
+        succ = (np.arange(V) * 2654435761 + 12345) % V
+        mix = rng.random((B, T)) < 0.5
+        tokens = base.copy()
+        tokens[:, 1:] = np.where(mix[:, 1:], succ[base[:, :-1]], base[:, 1:])
+        tokens = tokens.astype(np.int32)
+        labels = np.roll(tokens, -1, axis=1)
+        return {"tokens": tokens, "labels": labels}
+
+    def superstep_at(self, step: int, k: int):
+        """Stacked (k, B, T) batch covering steps [step, step + k)."""
+        return _stack_batches([self.batch_at(step + i) for i in range(k)])
+
+    def worker_superstep_at(self, step: int, k: int, n_workers: int,
+                            worker: int):
+        """Worker ``worker``'s (k, B/N, T) shard of ``superstep_at(step, k)``."""
+        return worker_slice(self.superstep_at(step, k), self.batch,
+                            n_workers, worker)
 
 
 @dataclasses.dataclass

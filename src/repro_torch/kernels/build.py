@@ -51,6 +51,8 @@ C_API = {
     "repro_fc_bwd": [_P] * 7 + [_I] * 3 + [_P],
     "repro_flash_attention_fwd": [_P] * 5 + [_I] * 10 + [_F] + [_L] * 12
     + [_P],
+    "repro_flash_attention_bwd": [_P] * 10 + [_I] * 8 + [_F] + [_L] * 15
+    + [_P],
 }
 
 

@@ -41,16 +41,18 @@
 // q, k, v and out are read and written through their (b, h, t) strides with
 // a contiguous last dim, so the serving path passes the KV cache in its
 // (B, S, Hkv, D) layout without a copy.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <string.h>
+#include "flash_common.cuh"
 
 namespace {
 
+using flash::from_f;
+using flash::load_vec;
+using flash::stage_rows;
+using flash::stage_transposed;
+
 constexpr int kBQ = 64;         // query rows per block
 constexpr int kBK = 64;         // keys per tile
-constexpr int kThreads = 256;   // 16 x 16
+constexpr int kThreads = flash::kTileThreads;  // 16 x 16
 constexpr int kPS = kBQ + 4;    // row stride of the p tile (16-byte aligned)
 constexpr float kNegInf = -1e30f;
 
@@ -65,79 +67,9 @@ struct Args {
   long long sqb, sqh, sqt, skb, skh, skt, svb, svh, svt, sob, soh, sot;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// N consecutive values at p (aligned to N * sizeof(T) bytes) widened to f32,
-// in 16-, 8- or 4-byte loads where the size allows.
-template <typename T, int N>
-__device__ __forceinline__ void load_vec(const T* p, float* o) {
-  constexpr int kBytes = N * (int)sizeof(T);
-  if constexpr (kBytes % 16 == 0) {
-    constexpr int kPer = 16 / (int)sizeof(T);
-#pragma unroll
-    for (int c = 0; c < kBytes / 16; ++c) {
-      uint4 raw = reinterpret_cast<const uint4*>(p)[c];
-      T e[kPer];
-      memcpy(e, &raw, 16);
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) o[c * kPer + i] = to_f(e[i]);
-    }
-  } else if constexpr (kBytes == 8) {
-    uint2 raw = *reinterpret_cast<const uint2*>(p);
-    T e[N];
-    memcpy(e, &raw, 8);
-#pragma unroll
-    for (int i = 0; i < N; ++i) o[i] = to_f(e[i]);
-  } else if constexpr (kBytes == 4) {
-    uint32_t raw = *reinterpret_cast<const uint32_t*>(p);
-    T e[N];
-    memcpy(e, &raw, 4);
-#pragma unroll
-    for (int i = 0; i < N; ++i) o[i] = to_f(e[i]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) o[i] = to_f(p[i]);
-  }
-}
-
-// Stage rows [t0, t0 + 64) of one head (row stride st, D contiguous values
-// each) transposed into dst[d * 64 + r] as Tdst; rows at or past T are zero.
-// Consecutive threads take consecutive rows, 16 bytes of one row each.
-template <typename Tsrc, typename Tdst, int D>
-__device__ __forceinline__ void stage_transposed(const Tsrc* src, long long st,
-                                                 int t0, int T, Tdst* dst) {
-  constexpr int kPer = 16 / (int)sizeof(Tsrc);
-  constexpr int kChunks = D / kPer;
-  for (int idx = threadIdx.x; idx < 64 * kChunks; idx += kThreads) {
-    const int r = idx % 64, ch = idx / 64;
-    float vals[kPer];
-    if (t0 + r < T) {
-      load_vec<Tsrc, kPer>(src + (long long)(t0 + r) * st + ch * kPer, vals);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) vals[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-      dst[(ch * kPer + i) * 64 + r] = from_f<Tdst>(vals[i]);
-  }
-}
-
 template <typename TQ, typename TKV, int D>
 __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Args a) {
   constexpr int kDPT = D / 16;  // output columns per thread
-  constexpr int kPer = 16 / (int)sizeof(TKV);
   extern __shared__ __align__(16) unsigned char smem[];
   float* qT = reinterpret_cast<float*>(smem);               // D x kBQ
   float* pT = qT + D * kBQ;                                  // kBK x kPS
@@ -178,14 +110,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Args a) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's kT, vs and pT are consumed
     stage_transposed<TKV, TKV, D>(kp, a.skt, k0, a.Tk, kT);
-    for (int idx = tid; idx < kBK * (D / kPer); idx += kThreads) {
-      const int c = idx / (D / kPer), ch = idx % (D / kPer);
-      uint4 raw = make_uint4(0, 0, 0, 0);
-      if (k0 + c < a.Tk)
-        raw = *reinterpret_cast<const uint4*>(
-            vp + (long long)(k0 + c) * a.svt + ch * kPer);
-      *reinterpret_cast<uint4*>(vs + c * D + ch * kPer) = raw;
-    }
+    stage_rows<TKV, D>(vp, a.svt, k0, a.Tk, vs);
     __syncthreads();
 
     // scores of rows 4ty+i against keys 4tx+j

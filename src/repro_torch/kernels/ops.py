@@ -10,9 +10,9 @@ saves.  A CPU tensor goes to the kernels' plain versions, a CUDA tensor to
 the hand-written kernels, or the call raises; the backward follows the
 device of the saved tensors and nothing else.
 
-The flash-attention forward (``kernels/flash_attention.py``) is in
-``KERNELS`` but has no ``Function`` yet: the serving path calls its
-wrapper directly, and its backward waits for the LM training slice.
+The flash-attention kernels (``kernels/flash_attention.py``) are in
+``KERNELS``; their ``Function`` is ``flash_attention_train`` there, and the
+serving path calls the forward's wrapper directly.
 
 The saved-activation entry points (``conv2d_bias_tanh_bwd``,
 ``fc_bias_tanh_bwd``, ``fc_bias_bwd``, ``maxpool2d_vjp_saved``) issue the
@@ -31,7 +31,7 @@ from repro_torch.kernels import pool as P
 #: The kernel wrappers, whose ``launches`` counts the main path reads.
 KERNELS = (K.conv2d_fwd, P.maxpool2d_fwd, FC.fc_fwd, FC.softmax_xent_fwd,
            K.conv2d_bwd_fused, P.maxpool2d_bwd, FC.fc_bwd_fused,
-           FA.flash_attention_fwd)
+           FA.flash_attention_fwd, FA.flash_attention_bwd)
 
 
 def reset_launch_counts() -> None:

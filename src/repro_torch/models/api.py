@@ -11,13 +11,24 @@ and dense families).
     spec = ops.bucket_spec()                 # ordered ParamBuckets
     shapes = ops.abstract_params()           # ``meta`` tensors
 
-The dense LM (serving only, so far):
+The dense LM:
 
     params = ops.init(torch.Generator(device="cuda").manual_seed(0))
+    loss, metrics = ops.loss(params, batch)  # batch: {"tokens", "labels"}
+    loss, metrics, grads = ops.loss_and_grads(params, batch,
+                                              use_kernel=True)
     cache = ops.init_cache(batch, max_seq)   # bf16, zeros
     logits, cache = ops.prefill(params, cache, tokens, lengths, 0,
                                 use_kernel=True)
     logits, cache = ops.decode(params, cache, tokens, cursors)
+
+``loss_and_grads``'s tape mode calls ``tape(bucket, params_b, grads_b) ->
+new_params_b | None`` once per bucket in reverse-production order: the CNN
+family chains each call to that layer's gradient production; the dense LM
+computes the whole gradient once and then walks the buckets in reverse
+order, as the JAX package does for every non-CNN family.  The dense LM's
+``loss`` and ``loss_and_grads`` take the flash kernel route unless
+``use_kernel=False`` is passed.
 
 ``get_ops`` raises when asked for CUDA on a host without a card: the port
 never falls back to the CPU on its own.
@@ -29,7 +40,8 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core.types import ArchConfig
+from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.core.types import ArchConfig, ParamBucket
 from repro_torch.models import cnn, lm
 from repro_torch.models import layers as L
 
@@ -51,6 +63,13 @@ class ModelOps:
     abstract_cache: Optional[Callable] = None
     decode: Optional[Callable] = None
     prefill: Optional[Callable] = None
+
+
+def default_bucket_spec(abstract_params: dict) -> tuple:
+    """Fallback ParamBuckets: one bucket per top-level param-tree key, in
+    the model's construction order."""
+    return tuple(ParamBucket(name=k, keys=(k,), index=i)
+                 for i, k in enumerate(abstract_params))
 
 
 def validate_bucket_spec(spec, abstract_params: dict) -> None:
@@ -88,37 +107,24 @@ def get_ops(cfg: ArchConfig, device="cuda") -> ModelOps:
     if cfg.family == "dense":
         return _lm_ops(cfg, device, dtype)
 
-    def to_device(batch):
-        return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
-
     def loss_and_grads(params, batch, tape=None):
         """(loss, metrics, grads) through autograd, or, with ``tape``, the
         reverse-production bucket walk: ``tape(bucket, params_b, grads_b)
         -> new_params_b | None`` and a 4-tuple return (loss, metrics,
         new_params, grads)."""
-        batch = to_device(batch)
+        batch = _to_device(batch, device)
         if tape is not None:
             return cnn.loss_and_bucket_grads(params, batch, cfg, tape)
-        leaves = {k: {kk: v.detach().requires_grad_(True)
-                      for kk, v in layer.items()}
-                  for k, layer in params.items()}
-        with torch.enable_grad():
-            loss, metrics = cnn.loss_fn(leaves, batch, cfg)
-            keys = [(k, kk) for k, layer in leaves.items() for kk in layer]
-            flat = torch.autograd.grad(loss, [leaves[k][kk]
-                                              for k, kk in keys])
-        grads = {k: {} for k in leaves}
-        for (k, kk), g in zip(keys, flat):
-            grads[k][kk] = g
-        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-                grads)
+        return _autograd(lambda p: cnn.loss_fn(p, batch, cfg), params)
 
     return ModelOps(
         cfg=cfg, device=device,
         init=lambda generator: cnn.build_params(
             cfg, L.InitFactory(generator, dtype, device)),
         abstract_params=lambda: cnn.build_params(cfg, L.ShapeFactory(dtype)),
-        loss=lambda params, batch: cnn.loss_fn(params, to_device(batch), cfg),
+        loss=lambda params, batch: cnn.loss_fn(params,
+                                               _to_device(batch, device),
+                                               cfg),
         forward=lambda params, images: cnn.forward(
             params, torch.as_tensor(images, device=device), cfg),
         bucket_spec=lambda: cnn.bucket_spec(cfg),
@@ -126,12 +132,48 @@ def get_ops(cfg: ArchConfig, device="cuda") -> ModelOps:
     )
 
 
+def _to_device(batch, device):
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def _autograd(loss_fn, params):
+    """(loss, metrics, grads) of ``loss_fn(params) -> (loss, metrics)``:
+    one ``torch.autograd.grad`` over every leaf of the params tree."""
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        loss, metrics = loss_fn(leaves)
+        flat = iter(torch.autograd.grad(loss, tree_leaves(leaves)))
+    grads = tree_map(lambda _: next(flat), leaves)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            grads)
+
+
 def _lm_ops(cfg: ArchConfig, device: torch.device, dtype) -> ModelOps:
-    """The dense LM's serving ops: params, the bf16 KV cache, and the
-    cached forward (``decode`` at an int or per-slot offset, ``prefill``
-    of right-padded prompts)."""
+    """The dense LM's ops: params, the training loss and its gradients
+    (autograd, then the reverse bucket walk in tape mode), the bf16 KV
+    cache, and the cached forward (``decode`` at an int or per-slot
+    offset, ``prefill`` of right-padded prompts)."""
+    def loss_and_grads(params, batch, tape=None, use_kernel=True):
+        batch = _to_device(batch, device)
+        loss, metrics, grads = _autograd(
+            lambda p: lm.loss_fn(p, batch, cfg, use_kernel), params)
+        if tape is None:
+            return loss, metrics, grads
+        new_params = dict(params)
+        for bucket in reversed(lm.bucket_spec(cfg)):
+            out = tape(bucket, bucket.view(params), bucket.view(grads))
+            if out is not None:
+                new_params.update(out)
+        return loss, metrics, new_params, grads
+
     return ModelOps(
         cfg=cfg, device=device,
+        loss=lambda params, batch, use_kernel=True: lm.loss_fn(
+            params, _to_device(batch, device), cfg, use_kernel),
+        forward=lambda params, tokens, **kw: lm.forward(params, tokens, cfg,
+                                                        **kw),
+        bucket_spec=lambda: lm.bucket_spec(cfg),
+        loss_and_grads=loss_and_grads,
         init=lambda generator: lm.build_params(
             cfg, L.InitFactory(generator, dtype, device)),
         abstract_params=lambda: lm.build_params(cfg, L.ShapeFactory(dtype)),

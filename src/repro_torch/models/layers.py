@@ -6,9 +6,10 @@ model-construction code produce initialised tensors (``InitFactory``) or
 shape-only ``meta`` tensors (``ShapeFactory``), so the two trees can never
 drift apart.
 
-The numerics (``rms_norm``, ``rope``, ``swiglu`` and the blockwise
-``flash_attention`` forward) keep the JAX package's f32 upcasts and casts
-back, so bf16 trees round where the reference rounds.
+The numerics (``rms_norm``, ``rope``, ``swiglu``, the blockwise
+``flash_attention`` with its flash backward, ``cross_entropy`` and
+``fused_ce``) keep the JAX package's f32 upcasts and casts back, so bf16
+trees round where the reference rounds.
 """
 from __future__ import annotations
 
@@ -17,6 +18,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels import flash_attention as FA
 
 
 class InitFactory:
@@ -98,41 +102,23 @@ def swiglu(x, w_gate, w_up, w_down):
 
 
 # ---------------------------------------------------------------------------
-# Blockwise flash attention forward (online softmax over KV blocks): the
-# plain route, which the JAX package takes with ``use_kernel=False`` and on
-# every decode step.  Its backward waits for the LM training slice.
+# Blockwise flash attention (online softmax over KV blocks) with a flash
+# backward: the plain route, which the JAX package takes with
+# ``use_kernel=False`` and on every decode step.
 # ---------------------------------------------------------------------------
-def _q_positions(q_offset, Tq: int, device):
-    """Absolute query positions: (Tq,) for an int offset, (B, Tq) for a
-    (B,) offset vector (one decode dispatch over slots at different write
-    cursors)."""
-    ar = torch.arange(Tq, device=device)
-    if isinstance(q_offset, torch.Tensor) and q_offset.ndim:
-        return q_offset.to(device).long()[:, None] + ar
-    return int(q_offset) + ar
-
-
-def flash_attention(q, k, v, *, causal: bool, q_offset=0,
-                    block_k: int = 1024,
-                    softmax_scale: Optional[float] = None):
-    """Blockwise flash attention forward, ``_flash_fwd_impl``'s numerics.
-
-    q: (B, Tq, Hq, D); k: (B, Tk, Hkv, D); v: (B, Tk, Hkv, Dv).  GQA by
-    head grouping.  Scores are f32 sums of products of q and k (exact
-    products for bf16 inputs, as ``preferred_element_type=f32``), masked to
-    -inf; ``p`` is cast to v's dtype before the P·V product, as in the
-    reference.  ``q_offset`` is the absolute cache position of query row 0:
-    an int, or a (B,) tensor of per-row offsets; the
-    causal mask admits ``k_pos <= q_offset + row``.  With an int offset the
-    blocks past the last visible key are skipped, which changes no bit:
-    such a block leaves (m, l, acc) as they are."""
+def _flash_fwd_impl(q, k, v, causal, q_offset, block_k, scale):
+    """``_flash_fwd_impl``'s numerics: returns (out, lse).  Scores are f32
+    sums of products of q and k (exact products for bf16 inputs, as
+    ``preferred_element_type=f32``), masked to -inf; ``p`` is cast to v's
+    dtype before the P·V product, as in the reference.  With an int offset
+    the blocks past the last visible key are skipped, which changes no
+    bit: such a block leaves (m, l, acc) as they are."""
     B, Tq, Hq, D = q.shape
     Tk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = Hq // Hkv
-    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
     block_k = min(block_k, Tk)
     qg = q.reshape(B, Tq, Hkv, G, D).float()
-    q_pos = _q_positions(q_offset, Tq, q.device)
+    q_pos = FA.q_positions(q_offset, Tq, q.device)
     vector = q_pos.ndim == 2
     m = torch.full((B, Hkv, G, Tq), -math.inf, device=q.device)
     l = torch.zeros((B, Hkv, G, Tq), device=q.device)
@@ -162,4 +148,82 @@ def flash_attention(q, k, v, *, causal: bool, q_offset=0,
     l_safe = torch.where(l == 0.0, 1.0, l)  # fully-masked rows
     out = acc / l_safe[..., None]
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Tq, Hq, Dv)
-    return out.to(q.dtype)
+    return out.to(q.dtype), m + torch.log(l_safe)
+
+
+class _Flash(torch.autograd.Function):
+    """``_flash``'s custom VJP: only (q, k, v, out, lse) are saved, and the
+    backward recomputes each block's scores from the LSE
+    (``flash_attention_bwd_plain``, a port of ``_flash_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, block_k, scale):
+        out, lse = _flash_fwd_impl(q, k, v, causal, q_offset, block_k, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, q_offset, block_k, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        causal, q_offset, block_k, scale = ctx.args
+        dq, dk, dv = FA.flash_attention_bwd_plain(
+            *ctx.saved_tensors, dout, causal=causal, q_offset=q_offset,
+            softmax_scale=scale, block_k=block_k)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool, q_offset=0,
+                    block_k: int = 1024,
+                    softmax_scale: Optional[float] = None):
+    """Blockwise flash attention with a flash backward.
+
+    q: (B, Tq, Hq, D); k: (B, Tk, Hkv, D); v: (B, Tk, Hkv, Dv).  GQA by
+    head grouping.  ``q_offset`` is the absolute cache position of query
+    row 0: an int, or a (B,) tensor of per-row offsets; the causal mask
+    admits ``k_pos <= q_offset + row``."""
+    D = q.shape[-1]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
+    return _Flash.apply(q, k, v, causal, q_offset, block_k, scale)
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy
+# ---------------------------------------------------------------------------
+def cross_entropy(logits, labels, vocab_size: Optional[int] = None):
+    """Mean token cross-entropy in f32 over logits (..., V), possibly
+    vocab-padded: the padded tail masked to -1e30, ``logsumexp`` minus the
+    label's logit.  The reference takes the label's logit as
+    ``sum(logits * one_hot)``, a sum of one value and zeros; the gather
+    here gives the same value without the (..., V) one-hot."""
+    logits = logits.float()
+    if vocab_size is not None and vocab_size < logits.shape[-1]:
+        valid = torch.arange(logits.shape[-1], device=logits.device) \
+            < vocab_size
+        logits = torch.where(valid, logits, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - ll)
+
+
+def fused_ce(x, out_embed, labels, vocab_size: Optional[int] = None,
+             n_chunks: int = 8):
+    """Output projection + cross-entropy over sequence chunks: each chunk's
+    (B, T/n_chunks, V) logits live only inside a
+    ``torch.utils.checkpoint`` region (recomputed in the backward, as
+    ``jax.checkpoint`` does), so the (B, T, V) logits are never
+    materialised.  x: (B, T, d); out_embed: (V, d)."""
+    B, T, d = x.shape
+    while T % n_chunks:
+        n_chunks -= 1
+    tc = T // n_chunks
+
+    def chunk_loss(xc, lc):
+        logits = xc @ out_embed.T
+        return cross_entropy(logits, lc, vocab_size) * lc.numel()
+
+    total = torch.zeros((), device=x.device)
+    for i in range(n_chunks):
+        sl = slice(i * tc, (i + 1) * tc)
+        total = total + checkpoint(chunk_loss, x[:, sl], labels[:, sl],
+                                   use_reentrant=False)
+    return total / labels.numel()

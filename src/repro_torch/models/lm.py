@@ -1,5 +1,6 @@
 """Decoder-only LM of the port, dense GQA family (counterpart of
-``repro.models.lm``): parameters, the KV cache, and the cached forward
+``repro.models.lm``): parameters, the uncached forward and loss of
+training (``forward`` / ``loss_fn``), the KV cache, and the cached forward
 that serving runs (``decode_step`` / ``prefill_step``).
 
 Single parameter layout, as in the reference: per-layer params are stacked
@@ -9,16 +10,25 @@ Python loop over that axis.
 
 The cache is written in place: ``decode_step`` returns the very dict it was
 given, with rows ``[cache_len, cache_len + T)`` of every layer filled, as
-JAX's donated cache buffers are reused.  The MLA, MoE and VLM families,
-and the uncached forward / loss of training, are not ported yet.
+JAX's donated cache buffers are reused.  The MLA, MoE and VLM families
+are not ported yet.
+
+``forward`` and ``loss_fn`` route the attention through the flash kernel
+(``flash_attention_train``) unless ``use_kernel=False`` is passed; the JAX
+package follows ``cfg.use_kernel``, which defaults to False.  The port's
+default keeps its main path on the kernel, as ``ServeEngine`` does.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.types import ArchConfig
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.core.types import ArchConfig, ParamBucket
+from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                 flash_attention_train)
 from repro_torch.models import layers as L
 
 
@@ -127,6 +137,35 @@ def layer_stack(params: dict, cfg: ArchConfig):
                      *[params[k] for k in chunk_keys(cfg)])
 
 
+def rechunk_params(params: dict, cfg: ArchConfig, layer_chunk: int) -> dict:
+    """Convert a params tree between ``layer_chunk`` layouts (concat and
+    re-split along the layer axis); non-layer keys pass through."""
+    stack = layer_stack(params, cfg)
+    out = {k: v for k, v in params.items()
+           if k != "layers" and not (k.startswith("layers") and
+                                     k[len("layers"):].isdigit())}
+    keys = chunk_keys(dataclasses.replace(cfg, layer_chunk=layer_chunk))
+    if len(keys) == 1:
+        out["layers"] = stack
+        return out
+    c = cfg.n_layers // len(keys)
+    for m, k in enumerate(keys):
+        out[k] = _tree_map(lambda a, m=m: a[m * c:(m + 1) * c], stack)
+    return out
+
+
+def bucket_spec(cfg: ArchConfig) -> tuple:
+    """ParamBuckets in production (forward) order: the token embedding,
+    each layer-stack chunk, the final norm, then the untied output
+    embedding."""
+    _require_dense(cfg)
+    order = ["embed", *chunk_keys(cfg), "final_norm"]
+    if not cfg.tie_embeddings:
+        order.append("out_embed")
+    return tuple(ParamBucket(name=k, keys=(k,), index=i)
+                 for i, k in enumerate(order))
+
+
 def build_params(cfg: ArchConfig, f):
     _require_dense(cfg)
     Vp, d = cfg.padded_vocab, cfg.d_model
@@ -148,18 +187,18 @@ def build_params(cfg: ArchConfig, f):
 # ---------------------------------------------------------------------------
 # Forward pieces
 # ---------------------------------------------------------------------------
-def _gqa_attention(p, x, cfg: ArchConfig, positions, kv_cache, cache_len,
-                   use_kernel: bool = False):
-    """Cached GQA attention; returns (out, (k_cache, v_cache)) with the
-    caches (B, S, Hkv, dh) written in place.  ``cache_len`` is an int (a
-    uniform prefill or decode) or a (B,) cursor tensor (per-slot decode).
-    With ``use_kernel`` and an int ``cache_len`` the attention runs the
-    flash kernel over the cache as it lies (a strided view, no copy);
-    otherwise the plain blockwise ``flash_attention``."""
-    if kv_cache is None:
-        raise NotImplementedError(
-            "the uncached (training) attention is not yet ported to "
-            "repro_torch; serving passes a KV cache")
+def _gqa_attention(p, x, cfg: ArchConfig, positions, kv_cache=None,
+                   cache_len=None, use_kernel: bool = False):
+    """GQA attention; returns (out, new_kv).
+
+    Without a cache (training) the attention is causal over the T tokens:
+    ``use_kernel`` routes it through ``flash_attention_train``, otherwise
+    through the plain blockwise ``flash_attention``; ``new_kv`` is None.
+    With a cache the caches (B, S, Hkv, dh) are written in place and
+    returned.  ``cache_len`` is an int (a uniform prefill or decode) or a
+    (B,) cursor tensor (per-slot decode); with ``use_kernel`` and an int
+    ``cache_len`` the attention runs the flash kernel over the cache as it
+    lies (a strided view, no copy)."""
     B, T, _ = x.shape
     dh, Hq, Hkv = cfg.d_head, cfg.n_heads, cfg.n_kv_heads
     q = (x @ p["wq"]).reshape(B, T, Hq, dh)
@@ -170,6 +209,12 @@ def _gqa_attention(p, x, cfg: ArchConfig, positions, kv_cache, cache_len,
         k = L.rms_norm(k, p["k_norm"])
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
+    if kv_cache is None:
+        if use_kernel:
+            o = flash_attention_train(q, k, v, causal=True)
+        else:
+            o = L.flash_attention(q, k, v, causal=True)
+        return o.reshape(B, T, Hq * dh) @ p["wo"], None
     ck, cv = kv_cache
     _cache_write(ck, k, cache_len, T)
     _cache_write(cv, v, cache_len, T)
@@ -194,6 +239,63 @@ def _block(p, x, cfg: ArchConfig, positions, kv_cache, cache_len,
     x = x + L.swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
                      p["mlp"]["w_down"])
     return x, new_kv
+
+
+# ---------------------------------------------------------------------------
+# Full model (training / uncached forward)
+# ---------------------------------------------------------------------------
+def _chunk_forward(stack, x, cfg: ArchConfig, positions,
+                   use_kernel: bool = False):
+    """Run one stacked chunk of layers in a loop; with ``cfg.remat`` each
+    layer runs under ``torch.utils.checkpoint`` (its activations are
+    recomputed in the backward, as ``jax.checkpoint`` does).  The
+    reference's MoE aux loss is zero for the dense family and is not
+    carried."""
+    def f(lp, h):
+        return _block(lp, h, cfg, positions, None, None, use_kernel)[0]
+
+    for i in range(cfg.n_layers // n_layer_chunks(cfg)):
+        lp = _tree_map(lambda a, i=i: a[i], stack)
+        x = (checkpoint(f, lp, x, use_reentrant=False) if cfg.remat
+             else f(lp, x))
+    return x
+
+
+def _stack_forward(params, x, cfg: ArchConfig, positions,
+                   use_kernel: bool = False):
+    """All layers, chunk by chunk in production order."""
+    for key in chunk_keys(cfg):
+        x = _chunk_forward(params[key], x, cfg, positions, use_kernel)
+    return x
+
+
+def forward(params, tokens, cfg: ArchConfig, return_hidden: bool = False,
+            use_kernel: bool = True):
+    """Training forward.  tokens: (B, T) int.  Returns (logits (B, T,
+    padded_vocab), aux) — or the final-normed hidden state with
+    ``return_hidden`` — with aux the dense family's zero aux loss."""
+    _require_dense(cfg)
+    device = params["embed"].device
+    tokens = torch.as_tensor(tokens, device=device).long()
+    x = embed_tokens(params, tokens, cfg)
+    positions = torch.arange(x.shape[1], device=device)[None, :]
+    x = _stack_forward(params, x, cfg, positions, use_kernel)
+    x = L.rms_norm(x, params["final_norm"])
+    aux = torch.zeros((), device=device)
+    if return_hidden:
+        return x, aux
+    return logits_fn(params, x, cfg), aux
+
+
+def loss_fn(params, batch, cfg: ArchConfig, use_kernel: bool = True):
+    """Mean token cross-entropy through ``fused_ce`` plus 0.01·aux (zero
+    for the dense family); returns (loss, {"ce", "aux"})."""
+    x, aux = forward(params, batch["tokens"], cfg, return_hidden=True,
+                     use_kernel=use_kernel)
+    out = params.get("out_embed", params["embed"])
+    labels = torch.as_tensor(batch["labels"], device=x.device).long()
+    ce = L.fused_ce(x, out, labels, cfg.vocab_size)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def embed_tokens(params, tokens, cfg: ArchConfig):

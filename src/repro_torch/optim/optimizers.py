@@ -90,6 +90,11 @@ def sgd(lr_fn: Callable, momentum: float = 0.0,
     return Optimizer(init, apply)
 
 
+#: adamw updates a leaf of more entries than this in slices of whole rows
+#: (same bits, fewer f32 transients at once).
+UPDATE_SLICE = 1 << 26
+
+
 def adamw(lr_fn: Callable, b1: float = 0.9, b2: float = 0.95,
           eps: float = 1e-8, weight_decay: float = 0.1,
           moment_dtype: str = "float32",
@@ -101,36 +106,75 @@ def adamw(lr_fn: Callable, b1: float = 0.9, b2: float = 0.95,
             return torch.zeros(p.shape, dtype=mdt, device=p.device)
         return {"m": tree_map(z, params), "v": tree_map(z, params)}
 
-    def pre_apply(grads):
+    def clip_scale(grads):
         # the one globally coupled piece of the update: the clip scale is a
         # function of the whole gradient tree's norm
         sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
         gn = torch.sqrt(sum(sq[1:], sq[0]) + 1e-12)
-        scale = torch.clamp(grad_clip / gn, max=1.0)
-        return tree_map(lambda g: g * scale.to(g.dtype), grads)
+        return torch.clamp(grad_clip / gn, max=1.0)
 
-    def apply_raw(params, grads, state, step):
+    def clip(g, scale):
+        return g * scale.to(g.dtype)
+
+    def pre_apply(grads):
+        scale = clip_scale(grads)
+        return tree_map(lambda g: clip(g, scale), grads)
+
+    def apply_raw(params, grads, state, step, scale=None):
+        """The per-leaf update; with ``scale`` each gradient leaf is
+        clipped as ``pre_apply`` clips it, one leaf at a time, so no
+        clipped copy of the whole tree is held."""
         lr = lr_fn(step)
         step_f = np.float32(step) + np.float32(1.0)
         bc1 = float(np.float32(1.0) - np.power(np.float32(b1), step_f))
         bc2 = float(np.float32(1.0) - np.power(np.float32(b2), step_f))
 
         def upd(p, g, m, v):
-            g = g.float()
-            m32 = b1 * m.float() + (1 - b1) * g
-            v32 = b2 * v.float() + (1 - b2) * g * g
-            u = (m32 / bc1) / (torch.sqrt(v32 / bc2) + eps)
-            u = u + weight_decay * p.float()
-            newp = (p.float() - lr * u).to(p.dtype)
-            return newp, m32.to(mdt), v32.to(mdt)
+            """The update of one leaf, elementwise, in slices of whole rows
+            of at most ``UPDATE_SLICE`` entries: each entry's arithmetic is
+            the same, and a large leaf (an embedding) holds the f32
+            transients of one slice at a time."""
+            if p.dim() == 0 or p.numel() <= UPDATE_SLICE:
+                return upd_slice(p, g, m, v)
+            outs = (torch.empty_like(p), torch.empty(m.shape, dtype=mdt,
+                                                     device=m.device),
+                    torch.empty(v.shape, dtype=mdt, device=v.device))
+            rows = max(1, UPDATE_SLICE // (p.numel() // p.shape[0]))
+            for i in range(0, p.shape[0], rows):
+                sl = slice(i, i + rows)
+                for out, val in zip(outs, upd_slice(p[sl], g[sl], m[sl],
+                                                    v[sl])):
+                    out[sl] = val
+            return outs
+
+        def upd_slice(p, g, m, v):
+            # b1·m + (1 − b1)·g, b2·v + (1 − b2)·g·g, u = (m / bc1) /
+            # (sqrt(v / bc2) + eps) + wd·p and p − lr·u, each rounded as
+            # written; the in-place ops act only on tensors made here
+            g = (g if scale is None else clip(g, scale)).float()
+            m32 = m.float() * b1
+            m32 += (1 - b1) * g
+            v32 = v.float() * b2
+            gg = g * (1 - b2)
+            gg *= g
+            v32 += gg
+            del g, gg
+            u = v32 / bc2
+            u.sqrt_()
+            u += eps
+            u = torch.div(m32 / bc1, u, out=u)
+            u += p.float() * weight_decay
+            u *= lr
+            u.neg_()
+            u += p.float()  # p − lr·u, exactly
+            return u.to(p.dtype), m32.to(mdt), v32.to(mdt)
 
         out = tree_map(upd, params, grads, state["m"], state["v"])
         return _pick(out, 0), {"m": _pick(out, 1), "v": _pick(out, 2)}
 
     def apply(params, grads, state, step):
-        if grad_clip is not None:
-            grads = pre_apply(grads)
-        return apply_raw(params, grads, state, step)
+        scale = None if grad_clip is None else clip_scale(grads)
+        return apply_raw(params, grads, state, step, scale)
 
     return Optimizer(init, apply,
                      pre_apply=pre_apply if grad_clip is not None else None,

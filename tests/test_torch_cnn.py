@@ -29,7 +29,7 @@ NETS = ["chaos-small", "chaos-medium", "chaos-large"]
 ATOL, RTOL = 1e-5, 1e-4
 
 
-@pytest.mark.parametrize("name", NETS + ["qwen3-14b"])
+@pytest.mark.parametrize("name", NETS + ["qwen3-14b", "lm-bench"])
 def test_config_equals_reference_field_by_field(name):
     assert (dataclasses.asdict(configs.get(name))
             == dataclasses.asdict(ref_configs.get(name)))
@@ -38,11 +38,11 @@ def test_config_equals_reference_field_by_field(name):
 
 
 def test_list_archs_is_the_ported_part_of_the_reference():
-    assert configs.list_archs() == NETS + ["qwen3-14b"]
+    assert configs.list_archs() == NETS + ["qwen3-14b", "lm-bench"]
     assert set(configs.list_archs()) <= set(ref_configs.list_archs())
 
 
-@pytest.mark.parametrize("name", ["mistral-nemo-12b", "lm-bench",
+@pytest.mark.parametrize("name", ["mistral-nemo-12b", "rwkv6-1.6b",
                                   "no-such-net"])
 def test_other_archs_are_not_yet_ported(name):
     with pytest.raises(NotImplementedError, match="not yet ported"):

@@ -79,7 +79,8 @@ def test_cpu_path_leaves_every_launch_count_at_zero(name):
     assert kops.launch_counts() == {
         "conv2d_fwd": 0, "maxpool2d_fwd": 0, "fc_fwd": 0,
         "softmax_xent_fwd": 0, "conv2d_bwd_fused": 0, "maxpool2d_bwd": 0,
-        "fc_bwd_fused": 0, "flash_attention_fwd": 0}
+        "fc_bwd_fused": 0, "flash_attention_fwd": 0,
+        "flash_attention_bwd": 0}
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])
@@ -157,7 +158,8 @@ def test_build_dir_is_keyed_by_the_sources(monkeypatch, tmp_path):
     assert build.build_dir() != before
     assert [p.name for p in build.sources()] == [
         "conv2d.cu", "conv2d_bwd.cu", "errors.cu", "fc.cu", "fc_bwd.cu",
-        "flash_attention.cu", "pool.cu", "pool_bwd.cu", "softmax_xent.cu"]
+        "flash_attention.cu", "flash_attention_bwd.cu", "pool.cu",
+        "pool_bwd.cu", "softmax_xent.cu"]
 
 
 def test_c_api_names_every_entry_point_of_the_sources():

@@ -117,6 +117,33 @@ def test_apply_raw_bucket_by_bucket_equals_whole_tree_apply():
             assert torch.equal(st["v"][k][kk], want_s["v"][k][kk])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_updates_a_large_leaf_in_row_slices_bit_for_bit(
+        dtype, monkeypatch):
+    """A leaf above ``UPDATE_SLICE`` entries is updated a slice of rows at
+    a time, clipped leaf by leaf inside the update: the same bits as the
+    whole-leaf update after a whole-tree ``pre_apply``."""
+    rng = np.random.default_rng(8)
+    opt = optim.adamw(lambda s: 1e-2)
+    tree = lambda scale: {k: {kk: v.to(dtype) for kk, v in layer.items()}
+                          for k, layer in bridge.params_from_numpy(
+                              _tree(rng, scale), "cpu").items()}
+    params, grads = tree(1.0), tree(3.0)
+    state = opt.init(params)
+    state = {"m": {k: {kk: v + 0.1 for kk, v in layer.items()}
+                   for k, layer in state["m"].items()}, "v": state["v"]}
+    want = opt.apply_raw(params, opt.pre_apply(grads), state, 2)
+    monkeypatch.setattr(optim, "UPDATE_SLICE", 16)  # 30 x 10 -> 1 row each
+    got = opt.apply(params, grads, state, 2)
+    for a, b in zip(jax.tree.leaves(bridge.params_to_numpy(got[0])) +
+                    jax.tree.leaves(bridge.params_to_numpy(got[1])),
+                    jax.tree.leaves(bridge.params_to_numpy(want[0])) +
+                    jax.tree.leaves(bridge.params_to_numpy(want[1]))):
+        np.testing.assert_array_equal(a, b)
+    assert got[0]["fc4"]["w"].dtype == dtype
+    assert got[1]["m"]["fc4"]["w"].dtype == torch.float32
+
+
 def test_slice_and_merge_state_match_reference():
     rng = np.random.default_rng(7)
     state = {"mu": _tree(rng)}
