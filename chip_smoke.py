@@ -79,7 +79,30 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
     one batch of 1 x 256: the loss and each bucket's gradient norm of the
     kernel route on the card against the plain route on the card and
     against the default route on the CPU.
-14. Result lines: ``nvidia-smi``'s name and power limit, one JSON object of
+14. WKV parity: the WKV kernel against its plain version on the card at
+    the rwkv6-1.6b scoring shape (B=4, T=2048, H=32, D=64; bf16 r/k/v/u,
+    f32 w through the model's decay parameterisation, f32 out) and at edge
+    shapes (one chunk, T=32 with chunk 32, chunk 32 over T=256, D=16 and
+    32, B·H=3, all f32, ``out_dtype=None``, every decay at the clamp, u=0).
+15. RWKV-6 scoring: rwkv6-1.6b at full width and depth (1.48 B bf16
+    params from ``torch.Generator("cuda").manual_seed(0)``) through
+    ``get_ops(...).loss`` under ``torch.no_grad()`` on
+    ``TokenPipeline(vocab_size=65536, batch=4, seq_len=2048, seed=0)``:
+    exactly 24 ``wkv6_chunked`` launches per forward, two runs
+    bit-identical, the loss near ln V; the kernel route against the plain
+    route at 2 and 24 layers (loss, last-position logits); the card against
+    the CPU at 2 layers, 1 x 128 tokens.
+16. RWKV-6 serving through ``launch/serve.py``: the static batch
+    ``serve(batch=4, prompt_len=128, gen=16)`` twice (token-identical) and
+    a Poisson ``serve_trace(slots=4, requests=6, rate=0.5,
+    prompt_lens=(16, 64), gen=16)``, 0 kernel launches, 1 prefill + (gen - 1) decodes per static
+    batch; the chunked prefill against the token scan on ragged prompts
+    (next-token logits, the WKV state).
+17. RWKV-6 times: the WKV kernel per call at the scoring shape against its
+    plain version and its bound, the scoring forward per batch and
+    tokens/s with a torch.profiler trace, the prefill dispatch, the decode
+    step against its weight-read bound with its device-busy share.
+18. Result lines: ``nvidia-smi``'s name and power limit, one JSON object of
     the kernels, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -189,6 +212,45 @@ LM_FIRST_LOSS_SLACK = 2.0
 #: on an H100 80GB HBM3 at 700 W).
 LM_LOSS_REL = 1e-3
 LM_NORM_REL = 2e-3
+#: RWKV-6 at full width and depth: the scoring cell (one batch of the data
+#: pipeline through the loss, no gradient) and the two serving cells
+#: through ``launch/serve.py``; the card-vs-CPU check's depth and batch.
+RWKV = "rwkv6-1.6b"
+RWKV_PARAMS = 1_483_229_184
+RWKV_DATA = dict(batch=4, seq_len=2048, seed=0)
+RWKV_STATIC = dict(batch=4, prompt_len=128, gen=16)
+RWKV_TRACE = dict(slots=4, requests=6, rate=0.5, prompt_lens=(16, 64),
+                  gen=16)
+RWKV_CHECK = dict(layers=2, batch=1, seq_len=128)
+#: Ragged prompt lengths of the chunked-prefill check (4 rows of 128).
+RWKV_RAGGED = (128, 97, 64, 17)
+#: WKV kernel against its plain version on the card: an f32 output within
+#: atol + rtol * max |plain| (f32 sums of e^{±seg}-scaled products taken in
+#: another order); a bf16 output within one bf16 ulp or that bound.
+WKV_F32_TOL = (1e-5, 1e-4)
+#: A random-weight first loss: the unit-RMS final hidden state against the
+#: 0.02-scale output embedding gives logits of std 0.02 * sqrt(2048) =
+#: 0.905, about σ²/2 = 0.41 above ln V.
+RWKV_FIRST_LOSS_SLACK = 2.0
+#: The WKV kernel route against the plain route at 2 and 24 layers, and
+#: the card against the CPU at 2 layers: the loss within RWKV_LOSS_REL of
+#: its size and the last position's logits within RWKV_LOGIT_REL of the
+#: row's max |logit| (bf16 activations rounded after f32 sums taken in
+#: another order).  On an H100 80GB HBM3 at 700 W the two routes gave equal
+#: losses and logits at both depths, and the card and the CPU 8.6e-5 and
+#: 9.8e-3 (one bf16 ulp of the largest logit), so full depth needs no
+#: looser limit.
+RWKV_LOSS_REL = 1e-3
+RWKV_LOGIT_REL = 2e-2
+#: The chunked prefill against the token scan (the scan rounds the WKV
+#: state to bf16 after every token, the chunked form once): next-token
+#: logits within RWKV_CHUNKED_LOGIT_REL of the row's max |logit|, the WKV
+#: state within RWKV_CHUNKED_STATE_REL of each layer's max |state|, at the
+#: first layer and at any layer: random bf16 layers amplify the difference
+#: with depth (measured on an H100 80GB HBM3 at 700 W: logits 0.085, the
+#: state 0.0042 at layer 1 and up to 0.162 at layer 21).
+RWKV_CHUNKED_LOGIT_REL = 0.1
+RWKV_CHUNKED_STATE_REL = (0.02, 0.25)
 #: Launches of one chaos-large eval batch (its 1x1 pool issues none).
 LARGE_PER_BATCH = {"conv2d_fwd": 3, "maxpool2d_fwd": 2, "fc_fwd": 2,
                    "softmax_xent_fwd": 1}
@@ -851,13 +913,14 @@ def check_flash_parity(torch, FA) -> float:
 # ---------------------------------------------------------------------------
 # Phase 7: serving at full width and full depth
 # ---------------------------------------------------------------------------
-def dispatch_recorder(FA):
+def dispatch_recorder(kernel):
     """An ``on_dispatch`` callback and the log it fills: (kind, host
-    seconds, flash launches since the previous dispatch)."""
+    seconds, launches of the ``kernel`` wrapper since the previous
+    dispatch)."""
     log, last = [], [0]
 
     def on_dispatch(kind, seconds):
-        n = FA.flash_attention_fwd.launches
+        n = kernel.launches
         log.append((kind, seconds, n - last[0]))
         last[0] = n
 
@@ -894,7 +957,7 @@ def serve_static(torch, FA, kops, params, use_kernel=True):
     0: returns (tokens, dispatch log, counts, seconds)."""
     from repro_torch.launch.serve import serve
 
-    log, on_dispatch = dispatch_recorder(FA)
+    log, on_dispatch = dispatch_recorder(FA.flash_attention_fwd)
     torch.cuda.synchronize()
     kops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1023,7 +1086,7 @@ def check_serving(torch, FA, kops):
     if div[2][0] > LOGIT_REL or div[cfg.n_layers][0] > LOGIT_REL_DEEP:
         raise AssertionError(f"kernel and plain routes' logits differ: {div}")
 
-    log, on_dispatch = dispatch_recorder(FA)
+    log, on_dispatch = dispatch_recorder(FA.flash_attention_fwd)
     torch.cuda.synchronize()
     kops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1571,6 +1634,413 @@ def check_lm_routes(torch):
             raise AssertionError(f"card kernel route and {label} differ")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: WKV parity
+# ---------------------------------------------------------------------------
+#: (label, B, T, H, D, chunk, r/k/v/u dtype, out_dtype, decay, u = 0)
+WKV_CASES = [
+    ("rwkv6-1.6b scoring", 4, 2048, 32, 64, 64, "bf16", "f32", "model",
+     False),
+    ("T=64, one chunk", 2, 64, 4, 64, 64, "bf16", "f32", "model", False),
+    ("T=32, chunk=32", 2, 32, 4, 64, 32, "bf16", "f32", "model", False),
+    ("chunk=32 over T=256", 2, 256, 4, 64, 32, "bf16", "f32", "model",
+     False),
+    ("D=16", 2, 256, 4, 16, 64, "bf16", "f32", "model", False),
+    ("D=32", 2, 256, 4, 32, 64, "bf16", "f32", "model", False),
+    ("B*H=3", 1, 256, 3, 64, 64, "bf16", "f32", "model", False),
+    ("all f32", 2, 256, 4, 64, 64, "f32", "f32", "model", False),
+    ("out_dtype=None (bf16)", 2, 256, 4, 64, 64, "bf16", None, "model",
+     False),
+    ("every decay at the clamp", 2, 256, 4, 64, 64, "bf16", "f32", "clamp",
+     False),
+    ("u = 0", 2, 256, 4, 64, 64, "bf16", "f32", "model", True),
+]
+
+
+def wkv_inputs(torch, g, B, T, H, D, dtype, decay="model", u_zero=False):
+    """r, k at 0.5 and v at 1 in ``dtype``; w f32 through the model's decay
+    parameterisation (dec ~ N(0, 1) clamped <= 0, or 0 everywhere: the
+    clamp, w = e^-1, seg reaching -Q), w = exp(-exp(dec)); u at 0.1."""
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+    r = rn(B, T, H, D, scale=0.5).to(dtype)
+    k = rn(B, T, H, D, scale=0.5).to(dtype)
+    v = rn(B, T, H, D).to(dtype)
+    dec = (torch.zeros(B, T, H, D, device="cuda") if decay == "clamp"
+           else rn(B, T, H, D).clamp(max=0.0))
+    w = torch.exp(-torch.exp(dec))
+    u = (torch.zeros(H, D, device="cuda") if u_zero
+         else rn(H, D, scale=0.1)).to(dtype)
+    return r, k, v, w, u
+
+
+def check_wkv_parity(torch, W) -> float:
+    g = torch.Generator(device="cuda").manual_seed(1717)
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32, None: None}
+    atol, rtol = WKV_F32_TOL
+    worst = 0.0
+    for (label, B, T, H, D, chunk, dt, out, decay, u_zero) in WKV_CASES:
+        args = wkv_inputs(torch, g, B, T, H, D, dts[dt], decay, u_zero)
+        kw = dict(chunk=chunk, out_dtype=dts[out])
+        got = W.wkv6_chunked(*args, **kw)
+        want = W.wkv6_chunked_plain(*args, **kw)
+        torch.cuda.synchronize()
+        shape = (f"(B, T, H, D)=({B}, {T}, {H}, {D}) chunk={chunk} {dt} in, "
+                 f"{str(got.dtype)[6:]} out")
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"wkv {label}: {got.shape} {got.dtype} vs "
+                                 f"plain {want.shape} {want.dtype}")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"wkv {label}: non-finite output")
+        diff = (got.float() - want.float()).abs()
+        bound = atol + rtol * want.float().abs().max().item()
+        bad = diff > bound
+        tol = f"{atol} + {rtol} x max |plain| = {bound:.3e}"
+        if got.dtype == torch.bfloat16:
+            bad &= bf16_ulps(torch, got, want) > 1
+            tol = f"one bf16 ulp or {tol}"
+        if bool(bad.any()):
+            i = bad.nonzero()[0].tolist()
+            raise AssertionError(
+                f"wkv {label} {shape}: {int(bad.sum())} outputs beyond {tol},"
+                f" first at {i}: kernel {got[tuple(i)].item()!r} plain "
+                f"{want[tuple(i)].item()!r}")
+        worst = max(worst, diff.max().item())
+        print(f"parity wkv6_chunked {label} {shape}: max_abs_err="
+              f"{diff.max().item():.3e} (within {tol})", flush=True)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: RWKV-6 scoring at full width and depth
+# ---------------------------------------------------------------------------
+def rwkv_score(torch, kops, ops, params, batch, use_kernel=True):
+    """(loss, last position's logits (B, vocab) f32) of one batch; on the
+    card the kernel route launches the WKV kernel once per layer in each
+    of its two forwards, the plain route never."""
+    from repro_torch.models import rwkv6
+
+    kops.reset_launch_counts()
+    with torch.no_grad():
+        loss, _ = ops.loss(params, batch, use_kernel=use_kernel)
+        x, _ = rwkv6.forward(params, batch["tokens"], ops.cfg,
+                             return_hidden=True, use_kernel=use_kernel)
+        logits = x[:, -1] @ params["out_embed"].T
+    n = kops.launch_counts()["wkv6_chunked"]
+    want = 2 * ops.cfg.n_layers if use_kernel and ops.device.type == "cuda" \
+        else 0
+    if n != want:
+        raise AssertionError(f"{ops.cfg.name} on {ops.device}, use_kernel="
+                             f"{use_kernel}: {n} WKV launches, expected {want}")
+    return loss.item(), logits[:, :ops.cfg.vocab_size].float()
+
+
+def check_rwkv_scoring(torch, kops):
+    """Phase 15; returns what phases 16, 17 and the result line read."""
+    from repro_torch.configs import get
+    from repro_torch.models.api import get_ops
+
+    cfg = get(RWKV)
+    ops = get_ops(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = ops.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    if n_params != RWKV_PARAMS:
+        raise AssertionError(f"{RWKV}: {n_params} params, expected "
+                             f"{RWKV_PARAMS}")
+    print(f"{RWKV}: {n_params} params ({2 * n_params / 1e9:.3f} GB bf16) "
+          f"drawn on the card in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    batch = lm_batches(torch, cfg, 1, **RWKV_DATA)[0]
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            loss, _ = ops.loss(params, batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = kops.launch_counts()
+        want = {k: 0 for k in counts}
+        want["wkv6_chunked"] = cfg.n_layers
+        if counts != want:
+            raise AssertionError(f"scoring run {i + 1}: launches {counts}, "
+                                 f"expected {want}")
+        losses.append(loss)
+        print(f"scoring run {i + 1}: {RWKV_DATA}, loss {loss.item():.6f}, "
+              f"{seconds:.3f} s, launches {counts}", flush=True)
+    if not torch.equal(losses[0], losses[1]):
+        raise AssertionError("two scoring runs gave different losses")
+    peak = torch.cuda.max_memory_allocated()
+    first, ln_v = losses[0].item(), math.log(cfg.vocab_size)
+    print(f"scoring: two runs bit-identical; loss {first:.6f} against ln V "
+          f"= {ln_v:.6f} (limit +-{RWKV_FIRST_LOSS_SLACK}); peak device "
+          f"memory {peak / 1e9:.3f} GB", flush=True)
+    if not math.isfinite(first) or abs(first - ln_v) > RWKV_FIRST_LOSS_SLACK:
+        raise AssertionError(f"first loss {first} is not near ln V")
+
+    div = {}
+    for n in (RWKV_CHECK["layers"], cfg.n_layers):
+        c, p = depth_cut(cfg, params, n)
+        o = get_ops(c)
+        (lk, gk), (lp, gp) = (rwkv_score(torch, kops, o, p, batch, uk)
+                              for uk in (True, False))
+        div[n] = (abs(lk - lp) / abs(lp),
+                  row_rel_err(torch, gk, gp).max().item())
+        agree = (gk.argmax(-1) == gp.argmax(-1)).tolist()
+        print(f"depth {n}: kernel vs plain route: loss {lk:.6f} vs "
+              f"{lp:.6f} ({div[n][0]:.3e} of its size), last-position logits"
+              f" max |diff| / row max |logit| {div[n][1]:.6f}; argmax equal "
+              f"{agree}", flush=True)
+    if any(dl > RWKV_LOSS_REL or dg > RWKV_LOGIT_REL
+           for dl, dg in div.values()):
+        raise AssertionError(f"kernel and plain routes differ: {div} (limits"
+                             f" loss {RWKV_LOSS_REL}, logits "
+                             f"{RWKV_LOGIT_REL})")
+
+    t0 = time.perf_counter()
+    c, p = depth_cut(cfg, params, RWKV_CHECK["layers"])
+    small = lm_batches(torch, cfg, 1, batch=RWKV_CHECK["batch"],
+                       seq_len=RWKV_CHECK["seq_len"], seed=1)[0]
+    lk, gk = rwkv_score(torch, kops, get_ops(c), p, small, True)
+    lc, gc = rwkv_score(torch, kops, get_ops(c, device="cpu"),
+                        tree_map(lambda t: t.cpu(), p),
+                        {k: v.cpu() for k, v in small.items()}, False)
+    dl = abs(lk - lc) / abs(lc)
+    dg = row_rel_err(torch, gk.cpu(), gc).max().item()
+    print(f"card (kernel route) vs CPU (plain route), {c.name} cut to "
+          f"{c.n_layers} layers, batch {RWKV_CHECK['batch']} x "
+          f"{RWKV_CHECK['seq_len']}: loss {lk:.6f} vs {lc:.6f} ({dl:.3e} of "
+          f"its size, limit {RWKV_LOSS_REL}), last-position logits "
+          f"{dg:.6f} of the row's max |logit| (limit {RWKV_LOGIT_REL}); "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    if dl > RWKV_LOSS_REL or dg > RWKV_LOGIT_REL:
+        raise AssertionError("card and CPU scoring differ")
+    return dict(cfg=cfg, ops=ops, params=params, batch=batch, peak=peak,
+                counts=counts, param_bytes=2 * n_params)
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: RWKV-6 serving at full width and depth
+# ---------------------------------------------------------------------------
+def check_rwkv_serving(torch, kops, W, scoring):
+    """Phase 16; returns what phase 17 reads."""
+    from repro_torch.launch.serve import serve, serve_trace
+
+    cfg, ops, params = scoring["cfg"], scoring["ops"], scoring["params"]
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for i in range(2):
+        log, on_dispatch = dispatch_recorder(W.wkv6_chunked)
+        torch.cuda.synchronize()
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        tokens = serve(RWKV, smoke=False, params=params,
+                       on_dispatch=on_dispatch, **RWKV_STATIC)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = kops.launch_counts()
+        kinds = [kind for kind, _, _ in log]
+        if any(counts.values()):
+            raise AssertionError(f"static serving run {i + 1} launched "
+                                 f"{counts}")
+        if kinds != ["prefill"] + ["decode"] * (RWKV_STATIC["gen"] - 1):
+            raise AssertionError(f"static batch dispatches {kinds}")
+        if tokens.shape != (RWKV_STATIC["batch"], RWKV_STATIC["gen"]):
+            raise AssertionError(f"static batch tokens {tokens.shape}")
+        runs.append((tokens, log, seconds))
+        print(f"static batch run {i + 1}: {RWKV_STATIC}, {seconds:.3f} s, "
+              f"launches {counts}, dispatches 1 prefill + {len(log) - 1} "
+              f"decode", flush=True)
+    if not np.array_equal(runs[0][0], runs[1][0]):
+        raise AssertionError("two static runs gave different tokens")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"static batch: two runs token-identical, first tokens of each row "
+          f"{runs[0][0][:, :6].tolist()}; peak device memory "
+          f"{peak / 1e9:.3f} GB", flush=True)
+
+    log, on_dispatch = dispatch_recorder(W.wkv6_chunked)
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    finished, counters, _ = serve_trace(RWKV, smoke=False, params=params,
+                                        on_dispatch=on_dispatch,
+                                        **RWKV_TRACE)
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    if any(counts.values()) or any(n for _, _, n in log):
+        raise AssertionError(f"serve_trace launched {counts}")
+    if (len(finished) != RWKV_TRACE["requests"]
+            or any(len(f.tokens) != RWKV_TRACE["gen"] for f in finished)
+            or counters["prefill_dispatch"] < 2
+            or counters["decode_tokens"]
+            != RWKV_TRACE["requests"] * (RWKV_TRACE["gen"] - 1)):
+        raise AssertionError(f"serve_trace: {len(finished)} finished, "
+                             f"counters {counters}")
+    pre = [s for kind, s, _ in log if kind == "prefill"]
+    dec = statistics.median(s for kind, s, _ in log if kind == "decode")
+    print(f"serve_trace {RWKV_TRACE}: {len(finished)} requests in "
+          f"{trace_s:.3f} s, counters {counters}, launches {counts}, prefill "
+          f"dispatch ms {[round(1e3 * s, 3) for s in pre]}, decode step "
+          f"median {1e3 * dec:.3f} ms; prompt lengths "
+          f"{sorted(f.prompt_len for f in finished)}", flush=True)
+
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, size=(
+        len(RWKV_RAGGED), RWKV_STATIC["prompt_len"])).astype(np.int32)
+    lens = np.array(RWKV_RAGGED, np.int32)
+    rows = np.arange(len(lens))
+    out = {}
+    with torch.no_grad():
+        for chunked in (False, True):
+            logits, cache = ops.prefill(params, ops.init_cache(len(lens), 0),
+                                        prompts, lens, 0, chunked=chunked)
+            out[chunked] = (logits[rows, lens - 1][:, :cfg.vocab_size]
+                            .float(), cache["wkv"].float())
+    (ls, ss), (lc, sc) = out[False], out[True]
+    dl = row_rel_err(torch, lc, ls).max().item()
+    ds = ((sc - ss).abs().flatten(1).amax(1)
+          / ss.abs().flatten(1).amax(1)).tolist()
+    print(f"chunked prefill vs token scan, {len(lens)} prompts of lengths "
+          f"{RWKV_RAGGED}: next-token logits max |diff| / row max |logit| "
+          f"{dl:.6f} (limit {RWKV_CHUNKED_LOGIT_REL}); WKV state max |diff| "
+          f"/ the layer's max |state|, layer by layer: "
+          f"{[round(x, 6) for x in ds]} (limits {RWKV_CHUNKED_STATE_REL[0]} "
+          f"at layer 1, {RWKV_CHUNKED_STATE_REL[1]} at any); argmax equal "
+          f"{(lc.argmax(-1) == ls.argmax(-1)).tolist()}", flush=True)
+    if (dl > RWKV_CHUNKED_LOGIT_REL or ds[0] > RWKV_CHUNKED_STATE_REL[0]
+            or max(ds) > RWKV_CHUNKED_STATE_REL[1]):
+        raise AssertionError("chunked prefill and token scan differ")
+    return dict(runs=runs, peak=peak, prompts=prompts)
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: RWKV-6 times
+# ---------------------------------------------------------------------------
+def wkv_work(B, T, H, D, Q, in_bytes=2):
+    """(operations, bytes) of one WKV call.  Per (b, h, chunk): the two
+    intra-chunk products (ri kjᵀ, then the scores times v) are strictly
+    causal, 2·D FLOP for each of the Q(Q-1)/2 visible pairs; the two state
+    products (ri S, then the update kᵀ v) are 2·Q·D² each.  The O(Q·D)
+    elementwise terms are left out.  Bytes: r, k, v read once in
+    ``in_bytes``, w read and y written once in f32, u once."""
+    n = B * T * H * D
+    per_chunk = 2 * (Q * (Q - 1) * D) + 2 * (2 * Q * D * D)
+    return (per_chunk * B * H * (T // Q),
+            3 * n * in_bytes + 2 * n * 4 + H * D * in_bytes)
+
+
+def rwkv_times(torch, W, scoring, serving):
+    cfg, ops, params = scoring["cfg"], scoring["ops"], scoring["params"]
+    B, T = RWKV_DATA["batch"], RWKV_DATA["seq_len"]
+    H, D, Q = cfg.n_heads, cfg.d_head, 64
+    g = torch.Generator(device="cuda").manual_seed(77)
+    args = wkv_inputs(torch, g, B, T, H, D, torch.bfloat16)
+    kw = dict(chunk=Q, out_dtype=torch.float32)
+    t = time_turns(torch, {
+        "ms": lambda: W.wkv6_chunked(*args, **kw),
+        "plain_ms": lambda: W.wkv6_chunked_plain(*args, **kw)}, inner=5)
+    n_ops, n_bytes = wkv_work(B, T, H, D, Q)
+    row = dict(t, library_ms=None)
+    row["ops_ms"] = n_ops / PEAK_FP32 * 1e3
+    row["bytes_ms"] = n_bytes / PEAK_BYTES * 1e3
+    row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+    what = (f"per call at (B, T, H, D)=({B}, {T}, {H}, {D}), chunk {Q}, bf16 "
+            f"r/k/v/u, f32 w and y, CUDA events, median of 21 x 5 calls")
+    print(f"time wkv6_chunked kernel {what}: {row['ms']:.6f} ms "
+          f"({n_ops / (row['ms'] * 1e-3) / 1e12:.3f} TFLOP/s)", flush=True)
+    print(f"time wkv6_chunked plain version {what}: {row['plain_ms']:.6f} ms;"
+          f" no single PyTorch call computes the WKV recurrence (library: "
+          f"none)", flush=True)
+    print(f"bound wkv6_chunked per call: {row['bound_ms']:.6f} ms by "
+          f"{'operations' if row['ops_ms'] >= row['bytes_ms'] else 'bytes'} "
+          f"({n_ops:.4g} ops at 67 TFLOP/s f32 = {row['ops_ms']:.6f} ms; "
+          f"{n_bytes:.4g} bytes at 3.35 TB/s = {row['bytes_ms']:.6f} ms)",
+          flush=True)
+
+    batch = scoring["batch"]
+    with torch.no_grad():
+        fwd = time_turns(torch, {"loss": lambda: ops.loss(params, batch)},
+                         inner=1)["loss"]
+    print(f"scoring forward and loss, {RWKV} at full width and depth, "
+          f"{B} x {T} tokens (CUDA events, median of 21): {fwd:.3f} ms, "
+          f"{B * T / fwd * 1e3:.1f} tokens/s; the kernel's {cfg.n_layers} "
+          f"calls {cfg.n_layers * row['ms']:.3f} ms of it; peak device memory"
+          f" {scoring['peak'] / 1e9:.3f} GB", flush=True)
+    with torch.no_grad():
+        prof = profile_steps(torch, lambda: ops.loss(params, batch), steps=2)
+    if prof is None:
+        print("scoring: the profiler recorded no device events; device busy "
+              "share not measured", flush=True)
+    else:
+        share, by_name, n_kernels, _ = prof
+        print(f"scoring trace (torch.profiler, 2 calls): device busy "
+              f"{100 * share:.2f} % of the traced span, {n_kernels:.0f} device"
+              f" kernels per call; device ms per call by kernel: "
+              + "; ".join(f"{name[:60]} {ms:.6f}" for name, ms in by_name[:12]),
+              flush=True)
+
+    tokens, log, seconds = serving["runs"][1]
+    A, P, gen = (RWKV_STATIC[k] for k in ("batch", "prompt_len", "gen"))
+    pre = [s for kind, s, _ in log if kind == "prefill"][0]
+    dec = statistics.median(s for kind, s, _ in log if kind == "decode")
+    weight_ms = scoring["param_bytes"] / PEAK_BYTES * 1e3
+    run = (f"{RWKV} static batch, second run, host clock, each dispatch "
+           f"ending on its tokens' copy to the host")
+    print(f"serving prefill dispatch ({run}): {pre * 1e3:.3f} ms for {A} x "
+          f"{P} tokens (the token scan: {P} decode steps in one dispatch)",
+          flush=True)
+    print(f"serving decode step ({run}): median {dec * 1e3:.3f} ms for {A} "
+          f"rows of {gen - 1}, against its weight-read bound {weight_ms:.3f} "
+          f"ms ({scoring['param_bytes'] / 1e9:.3f} GB at 3.35 TB/s); "
+          f"{A / dec:.3f} generated tokens/s in decode, "
+          f"{(A * P + A * (gen - 1)) / seconds:.3f} tokens/s over the whole "
+          f"{seconds:.3f} s run; peak device memory {serving['peak'] / 1e9:.3f}"
+          f" GB", flush=True)
+    cache = ops.init_cache(A, 0)
+    first = serving["prompts"][:, :1]
+    with torch.no_grad():
+        prof = profile_steps(torch, lambda: ops.decode(params, cache, first,
+                                                       None), steps=5)
+    if prof is None:
+        print("decode step: the profiler recorded no device events; device "
+              "busy share not measured", flush=True)
+    else:
+        share, by_name, n_kernels, _ = prof
+        print(f"decode step trace (torch.profiler, 5 calls of {A} rows): "
+              f"device busy {100 * share:.2f} % of the traced span, "
+              f"{n_kernels:.0f} device kernels per call; device ms per call "
+              f"by kernel: " + "; ".join(f"{name[:60]} {ms:.6f}"
+                                         for name, ms in by_name[:10]),
+              flush=True)
+    return row
+
+
+def rwkv_phases(torch, kops):
+    """Phases 14-17; returns (the WKV parity's worst error, the scoring
+    run's launch counts, the WKV kernel's times)."""
+    from repro_torch.kernels import wkv6 as W
+
+    phase("14 WKV parity against the plain version")
+    wkv_err = check_wkv_parity(torch, W)
+    torch.cuda.empty_cache()
+    phase(f"15 RWKV-6 scoring: {RWKV} at full width and depth on cuda")
+    scoring = check_rwkv_scoring(torch, kops)
+    phase(f"16 RWKV-6 serving: {RWKV} at full width and depth on cuda")
+    serving = check_rwkv_serving(torch, kops, W, scoring)
+    phase("17 RWKV-6 times")
+    row = rwkv_times(torch, W, scoring, serving)
+    counts = scoring["counts"]
+    del scoring, serving
+    torch.cuda.empty_cache()
+    return wkv_err, counts, row
+
+
 def main() -> int:
     import torch
 
@@ -1738,8 +2208,11 @@ def main() -> int:
     phase(f"13 routes and card against CPU: {QWEN} at full width, "
           f"{LM_CHECK['layers']} layers")
     check_lm_routes(torch)
+    torch.cuda.empty_cache()
 
-    phase("14 result")
+    wkv_err, wkv_counts, wkv_row = rwkv_phases(torch, kops)
+
+    phase("18 result")
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         row = totals[name]
@@ -1771,6 +2244,16 @@ def main() -> int:
         "bound_by": ("operations" if bwd_row["ops_ms"] >= bwd_row["bytes_ms"]
                      else "bytes"),
         "library_ms": bwd_row["library_ms"]})
+    kernels.append({
+        "name": "wkv6_chunked", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/wkv6.py:71",
+        "launches": wkv_counts["wkv6_chunked"], "max_abs_err": wkv_err,
+        "ms": wkv_row["ms"], "plain_ms": wkv_row["plain_ms"],
+        "bound_ms": wkv_row["bound_ms"],
+        "bound_by": ("operations" if wkv_row["ops_ms"] >= wkv_row["bytes_ms"]
+                     else "bytes"),
+        "library_ms": None})
     lm = training["cfg"]
     print("kernel times are per chaos-large training step of "
           f"{BATCH} (all of the kernel's launches in one step); launches "
@@ -1780,7 +2263,10 @@ def main() -> int:
           f"of the first static serving run; flash_attention_bwd's time is "
           f"per {lm.name} training step of {LM_DATA['batch']} x "
           f"{LM_DATA['seq_len']} (its {lm.n_layers} launches) and its "
-          f"launches those of the first {LM_STEPS}-step bsp run; LM training "
+          f"launches those of the first {LM_STEPS}-step bsp run; "
+          f"wkv6_chunked's time is per call at the {RWKV} scoring shape "
+          f"({RWKV_DATA['batch']} x {RWKV_DATA['seq_len']}) and its launches "
+          f"those of one scoring forward; LM training "
           f"step {training['step_ms']:.3f} ms, "
           f"{training['tokens'] / training['step_ms'] * 1e3:.1f} tokens/s, "
           f"peak {training['peak'] / 1e9:.3f} GB; total "

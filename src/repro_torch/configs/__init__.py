@@ -2,8 +2,10 @@
 
 Each ported architecture lives in its own module exposing ``CONFIG`` and
 ``smoke_config()``, as in ``repro.configs``.  The paper's three
-Table-2 CNNs, the dense qwen3-14b and the dense lm-bench net are ported
-so far; every other name raises.
+Table-2 CNNs, the dense qwen3-14b and lm-bench nets and the ssm
+rwkv6-1.6b are ported so far; every other name raises.  Names map to
+modules as in the reference: ``-`` to ``_`` and ``.`` to ``p``
+(``rwkv6-1.6b`` -> ``rwkv6_1p6b``).
 """
 from __future__ import annotations
 
@@ -17,11 +19,12 @@ _ARCH_MODULES = [
     "chaos_large",
     "qwen3_14b",
     "lm_bench",
+    "rwkv6_1p6b",
 ]
 
 
 def _module(name: str):
-    key = name.replace("-", "_")
+    key = name.replace("-", "_").replace(".", "p")
     if key not in _ARCH_MODULES:
         raise NotImplementedError(
             f"architecture {name!r} is not yet ported to repro_torch "
@@ -38,4 +41,4 @@ def smoke(name: str) -> ArchConfig:
 
 
 def list_archs():
-    return [m.replace("_", "-") for m in _ARCH_MODULES]
+    return [m.replace("_", "-").replace("1p", "1.") for m in _ARCH_MODULES]

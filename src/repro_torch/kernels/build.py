@@ -53,6 +53,7 @@ C_API = {
     + [_P],
     "repro_flash_attention_bwd": [_P] * 10 + [_I] * 8 + [_F] + [_L] * 15
     + [_P],
+    "repro_wkv6_fwd": [_P] * 6 + [_I] * 8 + [_L] * 15 + [_P],
 }
 
 

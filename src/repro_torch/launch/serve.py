@@ -1,10 +1,11 @@
 """Continuous-batching serving driver of the port (counterpart of
 ``repro.launch.serve``).
 
-Wraps ``repro_torch.serve.ServeEngine``: a slot KV cache, batched prefill
-(whole prompts in one dispatch through the flash kernel on the card) and an
-admit/evict scheduler that steps every occupied slot in one dispatch per
-token with on-device greedy argmax.
+Wraps ``repro_torch.serve.ServeEngine``: a slot KV cache (or RWKV-6's
+recurrent state), batched prefill (whole prompts in one dispatch, through
+the flash kernel on the card for the dense LM) and an admit/evict
+scheduler that steps every occupied slot in one dispatch per token with
+on-device greedy argmax.
 
     # static batch (all requests arrive at t=0), on the card:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
@@ -14,10 +15,17 @@ token with on-device greedy argmax.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
         --slots 4 --requests 16 --rate 0.5 --gen 16 --device cpu
 
+    # RWKV-6 at full width and depth on the card, or its smoke config on
+    # the CPU:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
+        --full-config --batch 4 --prompt-len 128 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
+        --device cpu
+
 Without ``--full-config`` the architecture's ``smoke_config()`` is served.
-``--no-kernel`` takes the plain attention route.  ``--temperature`` > 0
-and ``--trace-out`` raise: seeded sampling and the obs hooks are not
-ported yet.
+``--no-kernel`` takes the plain attention route (RWKV-6's serving runs
+no kernel either way).  ``--temperature`` > 0 and ``--trace-out`` raise:
+seeded sampling and the obs hooks are not ported yet.
 """
 from __future__ import annotations
 

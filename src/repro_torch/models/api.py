@@ -1,5 +1,5 @@
-"""Model API of the port (counterpart of ``repro.models.api``; the cnn
-and dense families).
+"""Model API of the port (counterpart of ``repro.models.api``; the cnn,
+dense and ssm families).
 
     ops = get_ops(cfg)                       # device="cuda" by default
     params = ops.init(torch.Generator().manual_seed(0))
@@ -22,6 +22,12 @@ The dense LM:
                                 use_kernel=True)
     logits, cache = ops.decode(params, cache, tokens, cursors)
 
+RWKV-6 (the ssm family) has the same ``loss`` (the WKV kernel route
+unless ``use_kernel=False``), ``forward``, ``init_cache`` (bf16: the WKV
+state and the token-shift carries), ``decode`` and ``prefill`` (which
+takes ``chunked=True`` for the parallel form), and no ``loss_and_grads``
+yet.
+
 ``loss_and_grads``'s tape mode calls ``tape(bucket, params_b, grads_b) ->
 new_params_b | None`` once per bucket in reverse-production order: the CNN
 family chains each call to that layer's gradient production; the dense LM
@@ -42,10 +48,11 @@ import torch
 
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.core.types import ArchConfig, ParamBucket
-from repro_torch.models import cnn, lm
+from repro_torch.models import cnn, lm, rwkv6
 from repro_torch.models import layers as L
 
-#: The KV cache's dtype, as in the reference (``repro.models.api``).
+#: The cache's dtype (the dense KV cache, RWKV-6's state and carries), as
+#: in the reference (``repro.models.api``).
 CACHE_DTYPE = torch.bfloat16
 
 
@@ -95,7 +102,7 @@ def validate_bucket_spec(spec, abstract_params: dict) -> None:
 
 
 def get_ops(cfg: ArchConfig, device="cuda") -> ModelOps:
-    if cfg.family not in ("cnn", "dense"):
+    if cfg.family not in ("cnn", "dense", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not yet ported to repro_torch")
     device = torch.device(device)
@@ -106,6 +113,8 @@ def get_ops(cfg: ArchConfig, device="cuda") -> ModelOps:
     dtype = getattr(torch, cfg.param_dtype)
     if cfg.family == "dense":
         return _lm_ops(cfg, device, dtype)
+    if cfg.family == "ssm":
+        return _ssm_ops(cfg, device, dtype)
 
     def loss_and_grads(params, batch, tape=None):
         """(loss, metrics, grads) through autograd, or, with ``tape``, the
@@ -185,4 +194,32 @@ def _lm_ops(cfg: ArchConfig, device: torch.device, dtype) -> ModelOps:
             params, cache, tokens, cache_len, cfg, **kw),
         prefill=lambda params, cache, tokens, lengths, cache_len, **kw:
         lm.prefill_step(params, cache, tokens, lengths, cache_len, cfg, **kw),
+    )
+
+
+def _ssm_ops(cfg: ArchConfig, device: torch.device, dtype) -> ModelOps:
+    """RWKV-6's ops: params, the scoring loss and forward, the bf16
+    recurrent cache, and the cached forward (``decode`` of one token per
+    row, ``prefill`` of right-padded prompts).  Buckets are the top-level
+    param keys, as the reference's fallback gives them."""
+    abstract = lambda: rwkv6.build_params(cfg, L.ShapeFactory(dtype))
+    return ModelOps(
+        cfg=cfg, device=device,
+        init=lambda generator: rwkv6.build_params(
+            cfg, L.InitFactory(generator, dtype, device)),
+        abstract_params=abstract,
+        loss=lambda params, batch, use_kernel=True: rwkv6.loss_fn(
+            params, _to_device(batch, device), cfg, use_kernel),
+        forward=lambda params, tokens, **kw: rwkv6.forward(params, tokens,
+                                                           cfg, **kw),
+        bucket_spec=lambda: default_bucket_spec(abstract()),
+        init_cache=lambda b, s: rwkv6.init_cache(
+            cfg, b, s, L.InitFactory(None, CACHE_DTYPE, device)),
+        abstract_cache=lambda b, s: rwkv6.init_cache(
+            cfg, b, s, L.ShapeFactory(CACHE_DTYPE)),
+        decode=lambda params, cache, tokens, cache_len: rwkv6.decode_step(
+            params, cache, tokens, cache_len, cfg),
+        prefill=lambda params, cache, tokens, lengths, cache_len, **kw:
+        rwkv6.prefill_step(params, cache, tokens, lengths, cache_len, cfg,
+                           **kw),
     )

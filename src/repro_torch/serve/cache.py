@@ -1,9 +1,11 @@
-"""Slot-based KV cache for continuous batching (counterpart of
+"""Slot-based KV / state cache for continuous batching (counterpart of
 ``repro.serve.cache``).
 
 The cache is the family's own ``init_cache(slots, max_seq)`` dict, every
-leaf ``(L, slots, max_seq, Hkv, D)`` with the slot axis at position 1, so
-shapes never change as requests come and go: admission copies a freshly
+leaf with the slot axis at position 1: the dense family carries ``(L,
+slots, max_seq, Hkv, D)`` KV buffers, the stateful family (RWKV-6) ``(L,
+slots, H, D, D)`` WKV state plus ``(L, slots, 1, d)`` token-shift carries.
+Shapes never change as requests come and go: admission copies a freshly
 prefilled sub-cache into free slot rows in place, eviction returns the
 slot id to the free list (the row's stale contents are dead: the next
 admission overwrites the whole row).
@@ -27,6 +29,8 @@ class SlotKVCache:
         self.slots = slots
         self.max_seq = max_seq
         self.tree = ops.init_cache(slots, max_seq)
+        #: stateful families (rwkv) have no per-position axis to overflow
+        self.stateful = "wkv" in self.tree
         self.cursors = np.zeros(slots, np.int32)
         self._free = sorted(range(slots), reverse=True)  # pop() -> lowest id
 
@@ -48,7 +52,9 @@ class SlotKVCache:
     # -- capacity -----------------------------------------------------------
     def validate_admit(self, prompt_len: int, max_new: int) -> None:
         """Reject a request that cannot fit: prompt + generated tokens must
-        stay inside the slot's ``max_seq`` positions."""
+        stay inside the slot's ``max_seq`` positions (KV families)."""
+        if self.stateful:
+            return
         need = prompt_len + max_new
         if need > self.max_seq:
             raise ValueError(

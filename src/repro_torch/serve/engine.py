@@ -135,7 +135,7 @@ def _not_ported(what: str):
 
 
 class ServeEngine:
-    """Continuous-batching engine over the dense LM.
+    """Continuous-batching engine over the dense LM or RWKV-6.
 
     ``arch`` is a registry name (its ``smoke_config()`` with ``smoke``,
     else its ``CONFIG``) or an ``ArchConfig`` served as given.
@@ -143,7 +143,8 @@ class ServeEngine:
     (token-at-a-time reference).  ``use_kernel`` keeps the reference's
     meaning — batched prefill attention goes through the flash kernel —
     but defaults to True here: on the card the main path runs the kernel
-    unless the caller asks for the plain route.  Without ``params`` the
+    unless the caller asks for the plain route.  RWKV-6's prefill accepts
+    it and runs no kernel, as in the reference.  Without ``params`` the
     weights are drawn from ``torch.Generator(device).manual_seed(seed)``.
     ``on_dispatch(kind, seconds)``, when given, is called after every
     prefill and decode dispatch with its host time (which ends on the
@@ -220,9 +221,11 @@ class ServeEngine:
         slots = self.kv.alloc(len(reqs))
         lens = np.array([len(r.tokens) for r in reqs], np.int32)
         if self.prefill_mode == "batched":
-            # bucket padding writes [0, T) into every row's KV slot, so the
-            # bucket itself must fit (admitted rows already do)
-            T = min(_pow2_bucket(int(lens.max())), self.kv.max_seq)
+            T = _pow2_bucket(int(lens.max()))
+            if not self.kv.stateful:
+                # bucket padding writes [0, T) into every row's KV slot, so
+                # the bucket itself must fit (admitted rows already do)
+                T = min(T, self.kv.max_seq)
             toks = np.zeros((len(reqs), T), np.int32)
             for i, r in enumerate(reqs):
                 toks[i, :lens[i]] = r.tokens

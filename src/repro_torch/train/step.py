@@ -101,6 +101,10 @@ def make_train_step(cfg: ArchConfig, sync: SyncConfig, optimizer=None,
     The step body comes from the registered strategy; ``sync.layerwise``
     routes through the per-bucket non-instant-update path instead."""
     ops = get_ops(cfg, device)
+    if ops.loss_and_grads is None:
+        raise NotImplementedError(
+            f"training of the {cfg.family!r} family ({cfg.name}) is not yet "
+            f"ported to repro_torch")
     optimizer = optimizer or make_optimizer(cfg)
     strat = get_strategy(sync)
     if sync.layerwise:

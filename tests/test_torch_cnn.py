@@ -29,7 +29,8 @@ NETS = ["chaos-small", "chaos-medium", "chaos-large"]
 ATOL, RTOL = 1e-5, 1e-4
 
 
-@pytest.mark.parametrize("name", NETS + ["qwen3-14b", "lm-bench"])
+@pytest.mark.parametrize("name", NETS + ["qwen3-14b", "lm-bench",
+                                  "rwkv6-1.6b"])
 def test_config_equals_reference_field_by_field(name):
     assert (dataclasses.asdict(configs.get(name))
             == dataclasses.asdict(ref_configs.get(name)))
@@ -38,11 +39,12 @@ def test_config_equals_reference_field_by_field(name):
 
 
 def test_list_archs_is_the_ported_part_of_the_reference():
-    assert configs.list_archs() == NETS + ["qwen3-14b", "lm-bench"]
+    assert configs.list_archs() == NETS + ["qwen3-14b", "lm-bench",
+                                           "rwkv6-1.6b"]
     assert set(configs.list_archs()) <= set(ref_configs.list_archs())
 
 
-@pytest.mark.parametrize("name", ["mistral-nemo-12b", "rwkv6-1.6b",
+@pytest.mark.parametrize("name", ["mistral-nemo-12b", "zamba2-1.2b",
                                   "no-such-net"])
 def test_other_archs_are_not_yet_ported(name):
     with pytest.raises(NotImplementedError, match="not yet ported"):
