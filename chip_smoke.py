@@ -102,7 +102,21 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
     plain version and its bound, the scoring forward per batch and
     tokens/s with a torch.profiler trace, the prefill dispatch, the decode
     step against its weight-read bound with its device-busy share.
-18. Result lines: ``nvidia-smi``'s name and power limit, one JSON object of
+18. Split conv backward: ``conv2d_dx`` and ``conv2d_dw`` through the
+    kernel API on chaos-large's three conv layers at B=256, with x from the
+    forward and dz from autograd of the batch's summed CE through the plain
+    versions, counts from 0 around that run (exactly one launch of each per
+    layer); each held against its plain version and against
+    ``conv2d_bwd_fused`` with ``y=None``; the six conv shapes of the
+    Table-2 nets at B=8 and edge shapes (a batch_block that does not divide
+    B, batch_block=1, Cin=1 with K=6, Cin no multiple of 4, H < W and
+    H > W), every call one
+    launch and a second call bit-identical; times per chaos-large step
+    against the plain versions, ``conv2d_input`` / ``conv2d_weight`` (the
+    library yardsticks) and the bound, and the fused kernel against the
+    split pair (``vs_split``) per step and at the reference benchmark's
+    row (B=8, 26x26x20, K=5, Cout 60).
+19. Result lines: ``nvidia-smi``'s name and power limit, one JSON object of
     the kernels, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -251,6 +265,25 @@ RWKV_LOGIT_REL = 2e-2
 #: state 0.0042 at layer 1 and up to 0.162 at layer 21).
 RWKV_CHUNKED_LOGIT_REL = 0.1
 RWKV_CHUNKED_STATE_REL = (0.02, 0.25)
+#: The split conv backward (phase 18): its source and the TPU kernels it
+#: replaces; the conv shapes (B, H, Cin, K, Cout) of the three Table-2 nets
+#: at the reference benchmark's B=8 (``benchmarks/run.py``'s
+#: NET_CONV_SHAPES); edge shapes (B, H, W, Cin, K, Cout) with their
+#: batch_block (a batch_block that does not divide B, one image per block,
+#: Cin = 1 with K = 6 and Cout no multiple of 32, Cin no multiple of 4 with
+#: two Cout tiles, H < W and H > W); and the reference benchmark's
+#: fused-against-split row (chaos-large's conv2).
+#: dx is held at TOL["conv2d_bwd_fused"], dw at DW_REL.
+SPLIT_SOURCE = "src/repro_torch/kernels/csrc/conv2d_split_bwd.cu"
+SPLIT_REPLACES = {"conv2d_dx": "src/repro/kernels/conv2d.py:281",
+                  "conv2d_dw": "src/repro/kernels/conv2d.py:330"}
+NET_CONV_SHAPES = [(8, 29, 1, 4, 5), (8, 13, 5, 5, 10), (8, 29, 1, 4, 20),
+                   (8, 13, 20, 5, 40), (8, 26, 20, 5, 60),
+                   (8, 11, 60, 6, 100)]
+SPLIT_EDGES = [((6, 13, 13, 5, 5, 10), 4), ((6, 13, 13, 5, 5, 10), 1),
+               ((4, 13, 13, 1, 6, 45), 8), ((4, 14, 14, 6, 3, 33), 2),
+               ((3, 13, 17, 5, 4, 33), 2), ((2, 17, 11, 8, 3, 40), 8)]
+SPLIT_BENCH = (8, 26, 20, 5, 60)
 #: Launches of one chaos-large eval batch (its 1x1 pool issues none).
 LARGE_PER_BATCH = {"conv2d_fwd": 3, "maxpool2d_fwd": 2, "fc_fwd": 2,
                    "softmax_xent_fwd": 1}
@@ -2041,6 +2074,253 @@ def rwkv_phases(torch, kops):
     return wkv_err, counts, row
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the split conv backward
+# ---------------------------------------------------------------------------
+def split_layers(torch, K, P, FC, batch):
+    """chaos-large's three conv layers at B=256 from a real backward: each
+    layer's input x, its weight w and the gradient dz of the batch's summed
+    CE at its pre-activation, by autograd through the plain versions on the
+    card (the sum, not the mean, keeps dz at the size of one sample's
+    gradient)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get
+    from repro_torch.models.api import get_ops
+    from repro_torch.models.cnn import _trace_shapes
+
+    cfg = get("chaos-large")
+    params = get_ops(cfg).init(torch.Generator().manual_seed(0))
+    shapes = _trace_shapes(cfg)
+    convs = []
+    with torch.enable_grad():
+        h = batch["images"]
+        for i, (kind, k, *_r) in enumerate(shapes):
+            if kind == "conv":
+                p = params[f"conv{i}"]
+                z = K.conv2d_fwd_plain(h, p["w"], p["b"])
+                if not z.requires_grad:
+                    z.requires_grad_()
+                convs.append((h.detach(), p["w"], z))
+                h = torch.tanh(z)
+            elif kind == "pool":
+                if k > 1:
+                    h = P.maxpool2d_fwd_plain(h, k)
+            else:
+                p = params[f"fc{i}"]
+                h = FC.fc_fwd_plain(h.reshape(h.shape[0], -1), p["w"],
+                                    p["b"], None if i == len(shapes) - 1
+                                    else "tanh")
+        loss = F.cross_entropy(h, batch["labels"].long(), reduction="sum")
+        dzs = torch.autograd.grad(loss, [z for _, _, z in convs])
+    return [(x.contiguous(), w.contiguous(), dz.contiguous())
+            for (x, w, _), dz in zip(convs, dzs)]
+
+
+def split_product(x, w) -> int:
+    """FLOP of one of dx and dw: the forward's products."""
+    B, H, Wd, Cin = x.shape
+    Kk, _, _, Cout = w.shape
+    return 2 * B * (H - Kk + 1) * (Wd - Kk + 1) * Cout * Kk * Kk * Cin
+
+
+def check_split(torch, name, label, got, want, worst):
+    """Hold dx at TOL["conv2d_bwd_fused"] (every element), dw at DW_REL (its
+    max |diff| against max |want|); record the max |diff| in ``worst``."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{name} {label}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name} {label}: non-finite output")
+    diff = (got - want).abs()
+    err = diff.max().item()
+    if name == "conv2d_dw":
+        limit = DW_REL * want.abs().max().item()
+        if err > limit:
+            raise AssertionError(f"{name} {label}: max |diff| = {err:.3e} "
+                                 f"over {DW_REL} * max |want| = {limit:.3e}")
+    else:
+        atol, rtol = TOL["conv2d_bwd_fused"]
+        if not bool((diff <= atol + rtol * want.abs()).all()):
+            raise AssertionError(f"{name} {label}: max |diff| = {err:.3e} "
+                                 f"over atol {atol} rtol {rtol}")
+    if worst is not None:
+        worst[name] = max(worst[name], err)
+    return err
+
+
+def check_split_backward(torch, kops, K, P, FC, batch_np) -> dict:
+    """Phase 18; returns the kernels-line fields of conv2d_dx and
+    conv2d_dw."""
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+             batch_np.items()}
+    layers = split_layers(torch, K, P, FC, batch)
+    names = ("conv2d_dx", "conv2d_dw")
+
+    # The path: the kernel API on chaos-large's three conv layers, counts
+    # set to 0 just before and read just after.
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    got = [(K.conv2d_dx(dz, w, x.shape), K.conv2d_dw(x, dz, w.shape))
+           for x, w, dz in layers]
+    torch.cuda.synchronize()
+    path_counts = kops.launch_counts()
+    want = {k: 0 for k in path_counts}
+    want.update({n: len(layers) for n in names})
+    if path_counts != want:
+        raise AssertionError(f"split backward: launches {path_counts}, "
+                             f"expected {want}")
+    print(f"split backward of chaos-large's {len(layers)} conv layers at "
+          f"B={BATCH}: launches {path_counts}", flush=True)
+
+    worst = {n: 0.0 for n in names}
+    calls = {n: 0 for n in names + ("conv2d_bwd_fused",)}
+    kops.reset_launch_counts()
+
+    def dx_of(dz, w, shape, bb=8):
+        calls["conv2d_dx"] += 1
+        return K.conv2d_dx(dz, w, shape, batch_block=bb)
+
+    def dw_of(x, dz, shape, bb=8):
+        calls["conv2d_dw"] += 1
+        return K.conv2d_dw(x, dz, shape, batch_block=bb)
+
+    for (x, w, dz), (dx, dw) in zip(layers, got):
+        label = f"chaos-large x{tuple(x.shape)} w{tuple(w.shape)}"
+        e_dx = check_split(torch, "conv2d_dx", label, dx,
+                           K.conv2d_dx_plain(dz, w, x.shape), worst)
+        e_dw = check_split(torch, "conv2d_dw", label, dw,
+                           K.conv2d_dw_plain(x, dz, w.shape), worst)
+        fdx, fdw, _ = K.conv2d_bwd_fused(x, dz, w)
+        calls["conv2d_bwd_fused"] += 1
+        f_dx = check_split(torch, "conv2d_dx", label + " vs fused", dx, fdx,
+                           None)
+        f_dw = check_split(torch, "conv2d_dw", label + " vs fused", dw, fdw,
+                           None)
+        same = (torch.equal(dx_of(dz, w, x.shape), dx)
+                and torch.equal(dw_of(x, dz, w.shape), dw))
+        if not same:
+            raise AssertionError(f"split backward {label}: two calls differ")
+        print(f"parity split {label}: dx {e_dx:.3e}, dw {e_dw:.3e} against "
+              f"the plain versions; dx {f_dx:.3e}, dw {f_dw:.3e} against "
+              f"conv2d_bwd_fused; second calls bit-identical", flush=True)
+
+    g = torch.Generator(device="cuda").manual_seed(18)
+    cases = [((B, H, H, Cin, Kk, Cout), 8)
+             for B, H, Cin, Kk, Cout in NET_CONV_SHAPES] + SPLIT_EDGES
+    for (B, H, Wd, Cin, Kk, Cout), bb in cases:
+        x = torch.rand((B, H, Wd, Cin), generator=g, device="cuda") * 2 - 1
+        w = torch.randn((Kk, Kk, Cin, Cout), generator=g, device="cuda") \
+            / math.sqrt(Kk * Kk * Cin)
+        dz = torch.randn((B, H - Kk + 1, Wd - Kk + 1, Cout), generator=g,
+                         device="cuda")
+        label = f"x{tuple(x.shape)} w{tuple(w.shape)} batch_block={bb}"
+        dx, dw = dx_of(dz, w, x.shape, bb), dw_of(x, dz, w.shape, bb)
+        e_dx = check_split(torch, "conv2d_dx", label, dx,
+                           K.conv2d_dx_plain(dz, w, x.shape), worst)
+        e_dw = check_split(torch, "conv2d_dw", label, dw,
+                           K.conv2d_dw_plain(x, dz, w.shape, batch_block=bb),
+                           worst)
+        if not (torch.equal(dx_of(dz, w, x.shape, bb), dx)
+                and torch.equal(dw_of(x, dz, w.shape, bb), dw)):
+            raise AssertionError(f"split backward {label}: two calls differ")
+        print(f"parity split {label}: dx {e_dx:.3e}, dw {e_dw:.3e}; second "
+              f"calls bit-identical", flush=True)
+    torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    want = {k: calls.get(k, 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"split parity: launches {counts}, expected "
+                             f"one per call, {want}")
+
+    # Times per chaos-large training step of 256, summed over its three
+    # conv layers, then the reference benchmark's fused-against-split row.
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")
+    rows = {n: {k: 0.0 for k in keys} for n in names}
+    pair_ms = fused_ms = 0.0
+    for x, w, dz in layers:
+        xn = x.permute(0, 3, 1, 2).contiguous()
+        wn = w.permute(3, 2, 0, 1).contiguous()
+        dzn = dz.permute(0, 3, 1, 2).contiguous()
+        t = time_turns(torch, {
+            "conv2d_dx": lambda: K.conv2d_dx(dz, w, x.shape),
+            "conv2d_dw": lambda: K.conv2d_dw(x, dz, w.shape),
+            "pair": lambda: (K.conv2d_dx(dz, w, x.shape),
+                             K.conv2d_dw(x, dz, w.shape)),
+            "fused": lambda: K.conv2d_bwd_fused(x, dz, w),
+            "conv2d_dx plain": lambda: K.conv2d_dx_plain(dz, w, x.shape),
+            "conv2d_dw plain": lambda: K.conv2d_dw_plain(x, dz, w.shape),
+            "conv2d_dx library": lambda: torch.nn.grad.conv2d_input(
+                xn.shape, wn, dzn),
+            "conv2d_dw library": lambda: torch.nn.grad.conv2d_weight(
+                xn, wn.shape, dzn)})
+        flop = split_product(x, w)
+        nbytes = 4 * (x.numel() + w.numel() + dz.numel())
+        bound, t_ops, t_bytes = bound_of(flop, nbytes)
+        for n in names:
+            row = rows[n]
+            row["ms"] += t[n]
+            row["plain_ms"] += t[f"{n} plain"]
+            row["library_ms"] += t[f"{n} library"]
+            row["bound_ms"] += bound
+            row["ops_ms"] += t_ops
+            row["bytes_ms"] += t_bytes
+        pair_ms += t["pair"]
+        fused_ms += t["fused"]
+        print(f"time split x{tuple(x.shape)} w{tuple(w.shape)}: conv2d_dx "
+              f"{t['conv2d_dx']:.6f} ms (plain {t['conv2d_dx plain']:.6f}, "
+              f"conv2d_input {t['conv2d_dx library']:.6f}), conv2d_dw "
+              f"{t['conv2d_dw']:.6f} ms (plain {t['conv2d_dw plain']:.6f}, "
+              f"conv2d_weight {t['conv2d_dw library']:.6f}), pair "
+              f"{t['pair']:.6f} ms, conv2d_bwd_fused {t['fused']:.6f} ms, "
+              f"bound {bound:.6f} ms each by "
+              f"{'operations' if t_ops >= t_bytes else 'bytes'} "
+              f"({flop:.4g} FLOP, {nbytes:.4g} bytes)", flush=True)
+    for n in names:
+        row = rows[n]
+        print(f"time {n} per chaos-large step of {BATCH} (3 layers): kernel "
+              f"{row['ms']:.6f} ms, plain {row['plain_ms']:.6f} ms, library "
+              f"{row['library_ms']:.6f} ms, bound {row['bound_ms']:.6f} ms "
+              f"({row['ms'] / row['bound_ms']:.2f}x)", flush=True)
+    bound_pair = sum(rows[n]["bound_ms"] for n in names)
+    print(f"split pair per chaos-large step of {BATCH}: {pair_ms:.6f} ms "
+          f"against conv2d_bwd_fused (y=None) {fused_ms:.6f} ms: vs_split "
+          f"{pair_ms / fused_ms:.2f}x; the pair's bound {bound_pair:.6f} ms",
+          flush=True)
+
+    B, H, Cin, Kk, Cout = SPLIT_BENCH
+    x = torch.randn((B, H, H, Cin), generator=g, device="cuda")
+    w = torch.randn((Kk, Kk, Cin, Cout), generator=g, device="cuda") * 0.1
+    dz = torch.randn((B, H - Kk + 1, H - Kk + 1, Cout), generator=g,
+                     device="cuda")
+    t = time_turns(torch, {
+        "fused": lambda: K.conv2d_bwd_fused(x, dz, w),
+        "conv2d_dx": lambda: K.conv2d_dx(dz, w, x.shape),
+        "conv2d_dw": lambda: K.conv2d_dw(x, dz, w.shape),
+        "pair": lambda: (K.conv2d_dx(dz, w, x.shape),
+                         K.conv2d_dw(x, dz, w.shape))})
+    bound = bound_of(split_product(x, w),
+                     4 * (x.numel() + w.numel() + dz.numel()))[0]
+    print(f"reference benchmark row x{tuple(x.shape)} w{tuple(w.shape)}: "
+          f"conv2d_bwd_fused {t['fused']:.6f} ms, conv2d_dx "
+          f"{t['conv2d_dx']:.6f} ms + conv2d_dw {t['conv2d_dw']:.6f} ms, "
+          f"pair {t['pair']:.6f} ms: vs_split {t['pair'] / t['fused']:.2f}x;"
+          f" bound {bound:.6f} ms per gradient", flush=True)
+
+    out = {}
+    for n in names:
+        row = rows[n]
+        out[n] = {"name": n, "route": "cuda", "source": SPLIT_SOURCE,
+                  "replaces": SPLIT_REPLACES[n],
+                  "launches": path_counts[n], "max_abs_err": worst[n],
+                  "ms": row["ms"], "plain_ms": row["plain_ms"],
+                  "bound_ms": row["bound_ms"],
+                  "bound_by": ("operations" if row["ops_ms"]
+                               >= row["bytes_ms"] else "bytes"),
+                  "library_ms": row["library_ms"]}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2212,7 +2492,12 @@ def main() -> int:
 
     wkv_err, wkv_counts, wkv_row = rwkv_phases(torch, kops)
 
-    phase("18 result")
+    phase("18 split conv backward: conv2d_dx and conv2d_dw against their "
+          "plain versions and conv2d_bwd_fused")
+    split = check_split_backward(torch, kops, K, P, FC, batches_np[0])
+    torch.cuda.empty_cache()
+
+    phase("19 result")
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         row = totals[name]
@@ -2254,6 +2539,7 @@ def main() -> int:
         "bound_by": ("operations" if wkv_row["ops_ms"] >= wkv_row["bytes_ms"]
                      else "bytes"),
         "library_ms": None})
+    kernels += [split["conv2d_dx"], split["conv2d_dw"]]
     lm = training["cfg"]
     print("kernel times are per chaos-large training step of "
           f"{BATCH} (all of the kernel's launches in one step); launches "
@@ -2266,7 +2552,9 @@ def main() -> int:
           f"launches those of the first {LM_STEPS}-step bsp run; "
           f"wkv6_chunked's time is per call at the {RWKV} scoring shape "
           f"({RWKV_DATA['batch']} x {RWKV_DATA['seq_len']}) and its launches "
-          f"those of one scoring forward; LM training "
+          f"those of one scoring forward; conv2d_dx's and conv2d_dw's times "
+          f"are per chaos-large step of {BATCH} (its 3 conv layers) and "
+          f"their launches those of one split backward of the 3; LM training "
           f"step {training['step_ms']:.3f} ms, "
           f"{training['tokens'] / training['step_ms'] * 1e3:.1f} tokens/s, "
           f"peak {training['peak'] / 1e9:.3f} GB; total "

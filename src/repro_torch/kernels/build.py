@@ -47,6 +47,9 @@ C_API = {
     "repro_softmax_xent_fwd": [_P, _P, _P, _P] + [_I] * 2 + [_P],
     "repro_conv2d_bwd": [_P] * 8 + [_I] * 7 + [_P],
     "repro_conv2d_bwd_scratch": [_I] * 7,
+    "repro_conv2d_dx": [_P] * 4 + [_I] * 6 + [_P],
+    "repro_conv2d_dw": [_P] * 4 + [_I] * 7 + [_P],
+    "repro_conv2d_dw_scratch": [_I] * 7,
     "repro_maxpool2d_bwd": [_P] * 4 + [_I] * 5 + [_P],
     "repro_fc_bwd": [_P] * 7 + [_I] * 3 + [_P],
     "repro_flash_attention_fwd": [_P] * 5 + [_I] * 10 + [_F] + [_L] * 12

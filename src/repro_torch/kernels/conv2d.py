@@ -10,6 +10,12 @@ raises); on a CPU tensor it runs ``conv2d_fwd_plain``.
 the tanh derivative fused when the forward output is given; on a CPU
 tensor it runs ``conv2d_bwd_fused_plain``.
 
+``conv2d_dx`` and ``conv2d_dw`` replace the reference's split backward
+(``repro.kernels.conv2d.conv2d_dx`` / ``conv2d_dw``), the un-fused baseline
+of ``conv2d_bwd_fused`` that no model calls: dx alone and dw alone, each
+from one launch of ``csrc/conv2d_split_bwd.cu``; on a CPU tensor each runs
+its plain version.
+
 Launch accounting: every kernel wrapper of the port carries a plain integer
 ``launches`` that ``record_launch`` raises by one each time the wrapper
 launches its kernel, and nowhere else; ``launch_trace`` also collects the
@@ -29,8 +35,9 @@ _ACTIVE_TRACE = None
 SMEM_BYTES = 48 * 1024
 #: Largest kernel size the backward kernel is compiled for.
 BWD_MAX_K = 8
-#: Shared memory a dx block of the backward kernel may take: it opts in
-#: above the default (``kDxSmem`` in ``csrc/conv2d_bwd.cu``).
+#: Shared memory a dx block of the backward kernels may take: they opt in
+#: above the default (``kDxSmem`` in ``csrc/conv2d_bwd.cu`` and
+#: ``csrc/conv2d_split_bwd.cu``).
 BWD_SMEM_BYTES = 100 * 1024
 
 
@@ -112,18 +119,24 @@ def conv2d_fwd(x, w, b=None, activation=None):
 conv2d_fwd.launches = 0
 
 
-def dx_row_block(H: int, K: int, W: int, Cout: int) -> int:
-    """Input rows per dx block of the backward kernel: its dz slab of
-    rb + K - 1 rows, each W + K - 1 wide with the column margins, fits in
-    ``BWD_SMEM_BYTES``; as few blocks per image as that allows, rows spread
-    evenly."""
+def _slab_rows(what: str, K: int, W: int, Cout: int) -> int:
+    """Most input rows a dx block may take: its dz slab of rows + K - 1
+    rows, each W + K - 1 wide with the column margins, fits in
+    ``BWD_SMEM_BYTES``."""
     fit = BWD_SMEM_BYTES // ((W + K - 1) * Cout * 4) - (K - 1)
     if fit < 1:
         raise ValueError(
-            f"conv2d_bwd_fused: {K} dz rows of width {W + K - 1} x {Cout} "
+            f"{what}: {K} dz rows of width {W + K - 1} x {Cout} "
             f"channels do not fit in {BWD_SMEM_BYTES} bytes of shared "
             f"memory")
-    nblocks = -(-H // min(fit, H))
+    return fit
+
+
+def dx_row_block(H: int, K: int, W: int, Cout: int) -> int:
+    """Input rows per dx block of the backward kernel: as few blocks per
+    image as keep the dz slab within ``BWD_SMEM_BYTES``, rows spread
+    evenly."""
+    nblocks = -(-H // min(_slab_rows("conv2d_bwd_fused", K, W, Cout), H))
     return -(-H // nblocks)
 
 
@@ -183,3 +196,119 @@ def conv2d_bwd_fused(x, dy, w, y=None):
 
 
 conv2d_bwd_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Split backward: dx alone and dw alone
+# ---------------------------------------------------------------------------
+def _divisor_block(n: int, want: int | None) -> int:
+    """Largest block size <= ``want`` that divides ``n`` (the reference's
+    rule for its batch blocks)."""
+    d = n if want is None else max(1, min(want, n))
+    while n % d:
+        d -= 1
+    return d
+
+
+def _check_split(what, x_shape, w_shape, dy_shape, batch_block) -> None:
+    """Raise unless x (B, H, W, Cin), w (K, K, Cin, Cout) and dy (B, Ho, Wo,
+    Cout) are the shapes of one valid conv and ``batch_block`` >= 1."""
+    if len(x_shape) != 4 or len(w_shape) != 4:
+        raise ValueError(f"{what}: x {tuple(x_shape)} and w "
+                         f"{tuple(w_shape)} must both be 4-d")
+    B, H, W, Cin = x_shape
+    K, K2, Cin_w, Cout = w_shape
+    if K != K2 or Cin_w != Cin or not 0 < K <= min(H, W) or B == 0:
+        raise ValueError(f"{what}: x {tuple(x_shape)} does not match w "
+                         f"{tuple(w_shape)}")
+    want = (B, H - K + 1, W - K + 1, Cout)
+    if tuple(dy_shape) != want:
+        raise ValueError(f"{what}: dy has shape {tuple(dy_shape)}, expected "
+                         f"{want}")
+    if not isinstance(batch_block, int) or batch_block < 1:
+        raise ValueError(f"{what}: batch_block must be an int >= 1, got "
+                         f"{batch_block!r}")
+
+
+def conv2d_dx_plain(dy, w, x_shape):
+    """Plain PyTorch version of ``conv2d_dx`` (``conv2d_input`` through
+    NHWC/HWIO permutes).  dx of one image does not depend on the batch
+    blocks."""
+    B, H, W, Cin = x_shape
+    dx = torch.nn.grad.conv2d_input((B, Cin, H, W), w.permute(3, 2, 0, 1),
+                                    dy.permute(0, 3, 1, 2))
+    return dx.permute(0, 2, 3, 1).contiguous()
+
+
+def conv2d_dx(dy, w, x_shape, *, batch_block: int = 8):
+    """dx of ``conv2d_fwd`` without bias or activation: dy (B, Ho, Wo,
+    Cout), w (K, K, Cin, Cout), both f32, x_shape (B, H, W, Cin) -> (B, H,
+    W, Cin) f32.  ``batch_block`` is checked as the reference's is; dx of
+    one image does not depend on it."""
+    x_shape = tuple(x_shape)
+    _check_split("conv2d_dx", x_shape, w.shape, dy.shape, batch_block)
+    if dy.device.type == "cpu":
+        return conv2d_dx_plain(dy, w, x_shape)
+    B, H, W, Cin = x_shape
+    K, _, _, Cout = w.shape
+    build.check("dy", dy, torch.float32, dy.shape, dy.device)
+    build.check("w", w, torch.float32, w.shape, dy.device)
+    _slab_rows("conv2d_dx", K, W, Cout)  # the kernel picks its row blocks
+    dx = torch.empty(x_shape, dtype=torch.float32, device=dy.device)
+    wt = torch.empty((w.numel(),), dtype=torch.float32, device=dy.device)
+    build.launch("repro_conv2d_dx", dy.device, dy, w, wt, dx, B, H, W, Cin,
+                 K, Cout)
+    record_launch(conv2d_dx)
+    return dx
+
+
+conv2d_dx.launches = 0
+
+
+def conv2d_dw_plain(x, dy, w_shape, *, batch_block: int = 8):
+    """Plain PyTorch version of ``conv2d_dw``: the weight gradients of the
+    B / bb batch blocks (``conv2d_weight`` each), summed in f32 in block
+    order, as the reference's sequential grid sums them."""
+    B = x.shape[0]
+    K, _, Cin, Cout = w_shape
+    bb = _divisor_block(B, batch_block)
+    dw = torch.zeros((Cout, Cin, K, K), dtype=torch.float32, device=x.device)
+    for b0 in range(0, B, bb):
+        dw += torch.nn.grad.conv2d_weight(
+            x[b0:b0 + bb].permute(0, 3, 1, 2).float(), dw.shape,
+            dy[b0:b0 + bb].permute(0, 3, 1, 2).float())
+    return dw.permute(2, 3, 1, 0).contiguous()
+
+
+def conv2d_dw(x, dy, w_shape, *, batch_block: int = 8):
+    """dw of ``conv2d_fwd``: x (B, H, W, Cin), dy (B, Ho, Wo, Cout), both
+    f32, w_shape (K, K, Cin, Cout) -> (K, K, Cin, Cout) f32, summed over
+    batch blocks of ``_divisor_block(B, batch_block)`` images in block
+    order."""
+    w_shape = tuple(w_shape)
+    _check_split("conv2d_dw", x.shape, w_shape, dy.shape, batch_block)
+    if x.device.type == "cpu":
+        return conv2d_dw_plain(x, dy, w_shape, batch_block=batch_block)
+    B, H, W, Cin = x.shape
+    K, _, _, Cout = w_shape
+    if K > BWD_MAX_K:
+        raise ValueError(f"conv2d_dw: the CUDA kernel takes kernel sizes up "
+                         f"to {BWD_MAX_K}, got {K}")
+    build.check("x", x, torch.float32, x.shape, x.device)
+    build.check("dy", dy, torch.float32, dy.shape, x.device)
+    bb = _divisor_block(B, batch_block)
+    with torch.cuda.device(x.device):
+        n_part = build.lib().repro_conv2d_dw_scratch(B, H, W, Cin, K, Cout,
+                                                     bb)
+    if n_part < 0:
+        raise RuntimeError(f"repro_conv2d_dw_scratch failed: CUDA error "
+                           f"{-n_part}")
+    dw = torch.empty(w_shape, dtype=torch.float32, device=x.device)
+    part = torch.empty((n_part,), dtype=torch.float32, device=x.device)
+    build.launch("repro_conv2d_dw", x.device, x, dy, dw, part, B, H, W, Cin,
+                 K, Cout, bb)
+    record_launch(conv2d_dw)
+    return dw
+
+
+conv2d_dw.launches = 0

@@ -14,7 +14,9 @@ The flash-attention kernels (``kernels/flash_attention.py``) are in
 ``KERNELS``; their ``Function`` is ``flash_attention_train`` there, and the
 serving path calls the forward's wrapper directly.  So is the WKV kernel
 (``kernels/wkv6.py``), which has no backward: RWKV-6 scoring calls its
-wrapper directly.
+wrapper directly.  So are the split conv backward kernels
+(``conv2d_dx``, ``conv2d_dw``), which no model calls and which, as in the
+reference, have no ``Function``.
 
 The saved-activation entry points (``conv2d_bias_tanh_bwd``,
 ``fc_bias_tanh_bwd``, ``fc_bias_bwd``, ``maxpool2d_vjp_saved``) issue the
@@ -34,7 +36,8 @@ from repro_torch.kernels import wkv6 as W
 #: The kernel wrappers, whose ``launches`` counts the main path reads.
 KERNELS = (K.conv2d_fwd, P.maxpool2d_fwd, FC.fc_fwd, FC.softmax_xent_fwd,
            K.conv2d_bwd_fused, P.maxpool2d_bwd, FC.fc_bwd_fused,
-           FA.flash_attention_fwd, FA.flash_attention_bwd, W.wkv6_chunked)
+           FA.flash_attention_fwd, FA.flash_attention_bwd, W.wkv6_chunked,
+           K.conv2d_dx, K.conv2d_dw)
 
 
 def reset_launch_counts() -> None:

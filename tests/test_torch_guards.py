@@ -80,7 +80,8 @@ def test_cpu_path_leaves_every_launch_count_at_zero(name):
         "conv2d_fwd": 0, "maxpool2d_fwd": 0, "fc_fwd": 0,
         "softmax_xent_fwd": 0, "conv2d_bwd_fused": 0, "maxpool2d_bwd": 0,
         "fc_bwd_fused": 0, "flash_attention_fwd": 0,
-        "flash_attention_bwd": 0, "wkv6_chunked": 0}
+        "flash_attention_bwd": 0, "wkv6_chunked": 0, "conv2d_dx": 0,
+        "conv2d_dw": 0}
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])
@@ -157,7 +158,8 @@ def test_build_dir_is_keyed_by_the_sources(monkeypatch, tmp_path):
     (csrc / "pool.cu").write_text((csrc / "pool.cu").read_text() + "\n")
     assert build.build_dir() != before
     assert [p.name for p in build.sources()] == [
-        "conv2d.cu", "conv2d_bwd.cu", "errors.cu", "fc.cu", "fc_bwd.cu",
+        "conv2d.cu", "conv2d_bwd.cu", "conv2d_split_bwd.cu", "errors.cu",
+        "fc.cu", "fc_bwd.cu",
         "flash_attention.cu", "flash_attention_bwd.cu", "pool.cu",
         "pool_bwd.cu", "softmax_xent.cu", "wkv6.cu"]
 
