@@ -12,7 +12,11 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
    version on the card, at chaos-large's B=256 shapes plus edge shapes
    (a batch that is no block multiple, a cropped pool tail, tied maxima
    from saturated tanh, ragged FC tiles, more classes than a warp, a conv
-   with uneven dx row blocks and no tanh).
+   with uneven dx row blocks and no tanh; for the forward conv non-square
+   inputs, input rows of 70 x 64 channels, B=1, K=1 and K=8, Cout no
+   multiple of 4, pixel counts no multiple of any tile, the 32 x 128 tile
+   with ragged edges, neither bias nor tanh, an output of 2^31 elements that the kernel writes in one launch
+   per image), and a second call of each bit-identical to the first.
 3. The eval path: chaos-large evaluated through ``get_ops(...).loss`` on
    ``cuda`` over 8 shared-queue batches of 256, with every launch count set
    to 0 just before and read just after (exactly 3 conv + 2 pool + 2 fc +
@@ -116,14 +120,24 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
     library yardsticks) and the bound, and the fused kernel against the
     split pair (``vs_split``) per step and at the reference benchmark's
     row (B=8, 26x26x20, K=5, Cout 60).
-19. Result lines: ``nvidia-smi``'s name and power limit, one JSON object of
+19. Conv kernel bits and resources: a SHA-256 digest of the outputs of
+    ``conv2d_fwd``, ``conv2d_bwd_fused``, ``conv2d_dx`` and ``conv2d_dw``
+    at chaos-large's three conv layers at B=256, on inputs drawn from
+    ``torch.Generator("cuda").manual_seed(DIGEST_SEED)`` (the digest of the
+    inputs printed too), each taken twice and equal; the registers, stack
+    and local memory (spills) and static shared memory of every compiled
+    kernel instance of the library, the conv kernels' included, from
+    ``cuobjdump --dump-resource-usage``.
+20. Result lines: ``nvidia-smi``'s name and power limit, one JSON object of
     the kernels, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -284,6 +298,33 @@ SPLIT_EDGES = [((6, 13, 13, 5, 5, 10), 4), ((6, 13, 13, 5, 5, 10), 1),
                ((4, 13, 13, 1, 6, 45), 8), ((4, 14, 14, 6, 3, 33), 2),
                ((3, 13, 17, 5, 4, 33), 2), ((2, 17, 11, 8, 3, 40), 8)]
 SPLIT_BENCH = (8, 26, 20, 5, 60)
+#: The forward conv's parity cases (B, H, W, Cin, K, Cout, activation,
+#: bias): chaos-large's three layers at B=256, chaos-small's conv0 at B=3,
+#: and edge shapes: Cout 7 with neither bias nor tanh; non-square with
+#: 420 pixels (no multiple of any tile's rows) and Cout 33 (two 32-wide
+#: tiles, no multiple of 4); input rows of 70 x 64 channels, three of
+#: which (53 KB) the kernel before the implicit GEMM could not stage;
+#: B=1; K=1 over 126 pixels; K=8; Cout 30 with neither bias nor tanh;
+#: Cout 99 over 8,470 pixels, where the plan takes the 32 x 128 tile with
+#: a ragged last block, a ragged Cout and a ragged last chunk (Kd 81).
+CONV_FWD_CASES = [(BATCH, 29, 29, 1, 4, 20, "tanh", True),
+                  (BATCH, 26, 26, 20, 5, 60, "tanh", True),
+                  (BATCH, 11, 11, 60, 6, 100, "tanh", True),
+                  (3, 29, 29, 1, 4, 5, "tanh", True),
+                  (3, 41, 41, 20, 5, 7, None, False),
+                  (3, 13, 17, 5, 4, 33, "tanh", True),
+                  (2, 24, 70, 64, 3, 36, "tanh", True),
+                  (1, 29, 29, 1, 4, 20, "tanh", True),
+                  (2, 9, 7, 6, 1, 10, "tanh", True),
+                  (2, 12, 10, 3, 8, 7, None, True),
+                  (5, 17, 19, 7, 3, 30, None, False),
+                  (70, 13, 13, 9, 3, 99, "tanh", True)]
+#: A forward conv whose output holds 2^31 elements (8 GB): the kernel's
+#: offsets are 32-bit, so it launches once per image.  (B, H, W, Cin, K,
+#: Cout)
+CONV_FWD_HUGE = (2, 1024, 1024, 1, 1, 1024)
+#: Phase 19: the seed of the digests' inputs.
+DIGEST_SEED = 19
 #: Launches of one chaos-large eval batch (its 1x1 pool issues none).
 LARGE_PER_BATCH = {"conv2d_fwd": 3, "maxpool2d_fwd": 2, "fc_fwd": 2,
                    "softmax_xent_fwd": 1}
@@ -325,13 +366,8 @@ def parity_cases(torch, K, P, FC):
         return (torch.randn(shape, generator=g) * scale).cuda()
 
     cases = []
-    for (B, H, Cin, Kk, Cout, act, bias) in [
-            (BATCH, 29, 1, 4, 20, "tanh", True),     # chaos-large conv0
-            (BATCH, 26, 20, 5, 60, "tanh", True),    # conv2, two row blocks
-            (BATCH, 11, 60, 6, 100, "tanh", True),   # conv4
-            (3, 29, 1, 4, 5, "tanh", True),          # chaos-small conv0, B=3
-            (3, 41, 20, 5, 7, None, False)]:         # uneven row blocks
-        x = u(B, H, H, Cin)
+    for (B, H, Wd, Cin, Kk, Cout, act, bias) in CONV_FWD_CASES:
+        x = u(B, H, Wd, Cin)
         w = n(Kk, Kk, Cin, Cout, scale=1 / math.sqrt(Kk * Kk * Cin))
         b = n(Cout, scale=0.1) if bias else None
         cases.append(("conv2d_fwd", f"x{tuple(x.shape)} w{tuple(w.shape)} "
@@ -415,10 +451,13 @@ def parity_cases(torch, K, P, FC):
 def check_parity(torch, K, P, FC) -> dict:
     worst = {name: 0.0 for name in TOL}
     for name, label, kern, plain in parity_cases(torch, K, P, FC):
-        got, want = kern(), plain()
+        got, again, want = kern(), kern(), plain()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
+        again = again if isinstance(again, tuple) else (again,)
         want = want if isinstance(want, tuple) else (want,)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name} {label}: two calls differ")
         atol, rtol = TOL[name]
         err = 0.0
         for i, (a, b) in enumerate(zip(got, want)):
@@ -441,8 +480,43 @@ def check_parity(torch, K, P, FC) -> dict:
                     f"{name} {label}: max |kernel - plain| = "
                     f"{diff.max().item():.3e} over atol {atol} rtol {rtol}")
         worst[name] = max(worst[name], err)
-        print(f"parity {name:17s} {label}: max_abs_err={err:.3e}", flush=True)
+        print(f"parity {name:17s} {label}: max_abs_err={err:.3e}; second "
+              f"call bit-identical", flush=True)
+    worst["conv2d_fwd"] = max(worst["conv2d_fwd"], check_conv_fwd_huge(torch,
+                                                                       K))
     return worst
+
+
+def check_conv_fwd_huge(torch, K) -> float:
+    """``conv2d_fwd`` at CONV_FWD_HUGE against its plain version one image
+    at a time (so the check fits beside the 8 GB output), and a second
+    call bit-identical; returns the max |kernel - plain|."""
+    B, H, Wd, Cin, Kk, Cout = CONV_FWD_HUGE
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.rand((B, H, Wd, Cin), generator=g, device="cuda") * 2 - 1
+    w = torch.randn((Kk, Kk, Cin, Cout), generator=g, device="cuda")
+    b = torch.randn((Cout,), generator=g, device="cuda") * 0.1
+    y = K.conv2d_fwd(x, w, b, "tanh")
+    atol, rtol = TOL["conv2d_fwd"]
+    label = f"x{tuple(x.shape)} w{tuple(w.shape)} ({y.numel()} outputs)"
+    err = 0.0
+    for n in range(B):
+        want = K.conv2d_fwd_plain(x[n:n + 1], w, b, "tanh")
+        diff = (y[n:n + 1] - want).abs()
+        err = max(err, diff.max().item())
+        if not bool((diff <= atol + rtol * want.abs()).all()):
+            raise AssertionError(f"conv2d_fwd {label}: image {n}: max "
+                                 f"|kernel - plain| = {err:.3e} over atol "
+                                 f"{atol} rtol {rtol}")
+        del want, diff
+    same = torch.equal(K.conv2d_fwd(x, w, b, "tanh"), y)
+    del y
+    torch.cuda.empty_cache()
+    if not same:
+        raise AssertionError(f"conv2d_fwd {label}: two calls differ")
+    print(f"parity conv2d_fwd        {label}: max_abs_err={err:.3e}; second "
+          f"call bit-identical", flush=True)
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -2321,6 +2395,99 @@ def check_split_backward(torch, kops, K, P, FC, batch_np) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: conv kernel bits and resources
+# ---------------------------------------------------------------------------
+def chaos_large_convs() -> list:
+    """(layer index, input height, Cin, K, Cout) of chaos-large's convs."""
+    from repro_torch.configs import get
+    from repro_torch.models.cnn import _trace_shapes
+
+    cfg = get("chaos-large")
+    h, out = cfg.cnn_input[0], []
+    for i, (kind, k, h_out, cin, cout) in enumerate(_trace_shapes(cfg)):
+        if kind == "conv":
+            out.append((i, h, cin, k, cout))
+        h = h_out
+    return out
+
+
+def digest(torch, tensors) -> str:
+    """SHA-256 of the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    torch.cuda.synchronize()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def conv_bits(torch, K) -> None:
+    """Digests of the four conv kernels' outputs at chaos-large's conv
+    layers, B=256, on inputs from a CUDA generator (cuDNN's results vary
+    between runs, so no input comes from it); two runs of each equal."""
+    g = torch.Generator(device="cuda").manual_seed(DIGEST_SEED)
+    for i, H, Cin, Kk, Cout in chaos_large_convs():
+        Ho = H - Kk + 1
+        x = torch.rand((BATCH, H, H, Cin), generator=g, device="cuda") * 2 - 1
+        w = torch.randn((Kk, Kk, Cin, Cout), generator=g, device="cuda") \
+            / math.sqrt(Kk * Kk * Cin)
+        b = torch.randn((Cout,), generator=g, device="cuda") * 0.1
+        y = torch.rand((BATCH, Ho, Ho, Cout), generator=g,
+                       device="cuda") * 2 - 1
+        dy = torch.randn((BATCH, Ho, Ho, Cout), generator=g, device="cuda")
+        outputs = {
+            "inputs x, w, b, y, dy": lambda: (x, w, b, y, dy),
+            "conv2d_fwd (tanh)": lambda: (K.conv2d_fwd(x, w, b, "tanh"),),
+            "conv2d_bwd_fused dx, dw, db": lambda: K.conv2d_bwd_fused(
+                x, dy, w, y),
+            "conv2d_dx": lambda: (K.conv2d_dx(dy, w, x.shape),),
+            "conv2d_dw": lambda: (K.conv2d_dw(x, dy, w.shape),)}
+        for what, fn in outputs.items():
+            first, second = digest(torch, fn()), digest(torch, fn())
+            if first != second:
+                raise AssertionError(f"conv{i} {what}: two runs differ")
+            print(f"digest conv{i} x{(BATCH, H, H, Cin)} w{tuple(w.shape)} "
+                  f"{what}: sha256 {first}", flush=True)
+
+
+def resource_usage(dump: str) -> list:
+    """(mangled name, registers, stack bytes, local bytes, static shared
+    bytes) of each function in ``cuobjdump --dump-resource-usage``'s
+    output."""
+    return [(name, int(reg), int(stack), int(local), int(shared))
+            for name, reg, stack, shared, local in re.findall(
+                r"Function ([^\s:]+):\s+REG:(\d+) STACK:(\d+) "
+                r"SHARED:(\d+) LOCAL:(\d+)", dump)]
+
+
+def kernel_resources(build) -> None:
+    """Registers, stack and local memory (spills: ``cudaFuncGetAttributes``'
+    ``localSizeBytes`` is the stack) and static shared memory (with the 1
+    KB that sm_90 reserves for every block) of every device kernel
+    instance in the library, the conv kernels' included, as ``cuobjdump``
+    (beside nvcc) reads them from the built library, names demangled by
+    ``cu++filt``."""
+    tools = Path(build.find_nvcc()).parent
+    dump = subprocess.run([str(tools / "cuobjdump"), "--dump-resource-usage",
+                           str(build.build())], capture_output=True,
+                          text=True, check=True).stdout
+    rows = resource_usage(dump)
+    if not rows:
+        raise AssertionError("cuobjdump listed no kernel of the library")
+    names = subprocess.run([str(tools / "cu++filt"), *(r[0] for r in rows)],
+                           capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    spilled = []
+    for name, (_, regs, stack, local, shared) in sorted(zip(names, rows)):
+        print(f"resources {name}: {regs} registers, {stack} bytes stack, "
+              f"{local} bytes local, {shared} bytes static shared",
+              flush=True)
+        if stack or local:
+            spilled.append(name)
+    print(f"resources: {len(rows)} kernel instances; with stack or local "
+          f"memory (spills): {'; '.join(spilled) or 'none'}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2497,7 +2664,12 @@ def main() -> int:
     split = check_split_backward(torch, kops, K, P, FC, batches_np[0])
     torch.cuda.empty_cache()
 
-    phase("19 result")
+    phase("19 conv kernel bits and resources")
+    conv_bits(torch, K)
+    kernel_resources(build)
+    torch.cuda.synchronize()
+
+    phase("20 result")
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         row = totals[name]

@@ -41,7 +41,7 @@ _L, _F = ctypes.c_longlong, ctypes.c_float
 #: The C interface: entry point -> argument types (the stream comes last in
 #: every launching entry point).
 C_API = {
-    "repro_conv2d_fwd": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+    "repro_conv2d_fwd": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     "repro_maxpool2d_fwd": [_P, _P] + [_I] * 5 + [_P],
     "repro_fc_fwd": [_P, _P, _P, _P] + [_I] * 4 + [_P],
     "repro_softmax_xent_fwd": [_P, _P, _P, _P] + [_I] * 2 + [_P],

@@ -31,8 +31,6 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import conv2d_valid_ref
 
 _ACTIVE_TRACE = None
-#: Shared memory a block may take without opting in to more.
-SMEM_BYTES = 48 * 1024
 #: Largest kernel size the backward kernel is compiled for.
 BWD_MAX_K = 8
 #: Shared memory a dx block of the backward kernels may take: they opt in
@@ -69,19 +67,6 @@ def _act_code(activation) -> int:
     return _ACTIVATIONS[activation]
 
 
-def row_block(Ho: int, K: int, W: int, Cin: int) -> int:
-    """Output rows per block of the CUDA kernel: as few blocks per image as
-    keep the rb + K - 1 input rows within ``SMEM_BYTES``, rows spread
-    evenly over them."""
-    fit = SMEM_BYTES // (W * Cin * 4) - (K - 1)
-    if fit < 1:
-        raise ValueError(
-            f"conv2d_fwd: {K} input rows of width {W} x {Cin} channels do "
-            f"not fit in {SMEM_BYTES} bytes of shared memory")
-    nblocks = -(-Ho // min(fit, Ho))
-    return -(-Ho // nblocks)
-
-
 def conv2d_fwd_plain(x, w, b=None, activation=None):
     """Plain PyTorch version of ``conv2d_fwd`` (``F.conv2d`` through
     NHWC/HWIO permutes)."""
@@ -94,7 +79,8 @@ def conv2d_fwd_plain(x, w, b=None, activation=None):
 
 def conv2d_fwd(x, w, b=None, activation=None):
     """act(conv(x, w) + b): x (B, H, W, Cin) f32, w (K, K, Cin, Cout) f32,
-    b (Cout,) f32 or None -> (B, Ho, Wo, Cout) f32."""
+    b (Cout,) f32 or None -> (B, Ho, Wo, Cout) f32.  The CUDA kernel takes
+    every such shape and picks its own tiles."""
     if x.device.type == "cpu":
         return conv2d_fwd_plain(x, w, b, activation)
     act = _act_code(activation)
@@ -108,10 +94,9 @@ def conv2d_fwd(x, w, b=None, activation=None):
     if b is not None:
         build.check("b", b, torch.float32, (Cout,), x.device)
     Ho, Wo = H - K + 1, W - K + 1
-    rb = row_block(Ho, K, W, Cin)
     y = torch.empty((B, Ho, Wo, Cout), dtype=torch.float32, device=x.device)
     build.launch("repro_conv2d_fwd", x.device, x, w, b, y, B, H, W, Cin, K,
-                 Cout, rb, act)
+                 Cout, act)
     record_launch(conv2d_fwd)
     return y
 

@@ -3,6 +3,7 @@ CUDA unless asked for the CPU, the CPU path launches no kernel, the
 wrappers refuse what their kernels do not take, and the build refuses to
 run without nvcc."""
 import ast
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -171,6 +172,31 @@ def test_c_api_names_every_entry_point_of_the_sources():
             if line.startswith('extern "C"'):
                 defined.add(line.split("(")[0].split()[-1].lstrip("*"))
     assert defined == set(build.C_API) | {"repro_cuda_error_string"}
+
+
+#: cuobjdump 12.8's ``--dump-resource-usage`` lines for two kernel
+#: instances of the library, after its per-object ``Common`` block.
+CUOBJDUMP_SAMPLE = """\
+Resource usage:
+ Common:
+  GLOBAL:0
+ Function _ZN41_GLOBAL__N__1a2c9ede_9_conv2d_cu_67c5b5f517conv2d_fwd_kernelILi32ELi128ELi4ELi8ELb1EEEvNS_4ArgsE:
+  REG:93 STACK:0 SHARED:22016 LOCAL:0 CONSTANT[0]:600 TEXTURE:0 SURFACE:0 SAMPLER:0
+ Function _ZN46_GLOBAL__N__c7bafbab_13_conv2d_bwd_cu_fb2596fb17conv2d_bwd_kernelILi6ELi4EEEvNS_4ArgsE:
+  REG:128 STACK:64 SHARED:1024 LOCAL:0 CONSTANT[0]:680 TEXTURE:0 SURFACE:0 SAMPLER:0
+"""
+
+
+def test_chip_smoke_reads_each_kernels_resources_from_cuobjdump():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.resource_usage(CUOBJDUMP_SAMPLE) == [
+        ("_ZN41_GLOBAL__N__1a2c9ede_9_conv2d_cu_67c5b5f517conv2d_fwd_kernel"
+         "ILi32ELi128ELi4ELi8ELb1EEEvNS_4ArgsE", 93, 0, 0, 22016),
+        ("_ZN46_GLOBAL__N__c7bafbab_13_conv2d_bwd_cu_fb2596fb17conv2d_bwd_"
+         "kernelILi6ELi4EEEvNS_4ArgsE", 128, 64, 0, 1024)]
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -40,21 +40,35 @@ def _weight(rng, *shape, fan_in):
 
 
 # ----------------------------------------------------------------- conv
-@pytest.mark.parametrize("B,H,Cin,Kk,Cout", [
-    (2, 29, 1, 4, 5),     # chaos-small conv0
-    (2, 13, 5, 5, 10),    # chaos-small conv2
-    (2, 11, 60, 6, 100),  # chaos-large conv4
+@pytest.mark.parametrize("B,H,W,Cin,Kk,Cout,act,bias", [
+    pytest.param(2, 29, 29, 1, 4, 5, "tanh", True,
+                 id="2-29-1-4-5"),              # chaos-small conv0
+    pytest.param(2, 13, 13, 5, 5, 10, "tanh", True,
+                 id="2-13-5-5-10"),             # chaos-small conv2
+    pytest.param(2, 11, 11, 60, 6, 100, "tanh", True,
+                 id="2-11-60-6-100"),           # chaos-large conv4
+    # Edge shapes of the CUDA kernel's tiles (chip_smoke.py holds the
+    # kernel to the plain version at the same shapes on the card).
+    (3, 13, 17, 5, 4, 33, "tanh", True),    # non-square; 420 pixels
+    (2, 24, 70, 64, 3, 36, "tanh", True),   # rows of 70 x 64 channels
+    (1, 29, 29, 1, 4, 20, "tanh", True),    # B=1
+    (2, 9, 7, 6, 1, 10, "tanh", True),      # K=1
+    (2, 12, 10, 3, 8, 7, None, True),       # K=8, no tanh
+    (5, 17, 19, 7, 3, 30, None, False),     # Cout 30, no bias, no tanh
+    (3, 41, 41, 20, 5, 7, None, False),     # Cout 7, no bias, no tanh
+    (70, 13, 13, 9, 3, 99, "tanh", True),   # 32 x 128 tile, ragged edges
 ])
-def test_conv2d_fwd_plain_matches_xla(B, H, Cin, Kk, Cout):
-    rng = _rng(B * H + Cout)
-    x = _act(rng, B, H, H, Cin)
+def test_conv2d_fwd_plain_matches_xla(B, H, W, Cin, Kk, Cout, act, bias):
+    rng = _rng(B * H + W + Cout)
+    x = _act(rng, B, H, W, Cin)
     w = _weight(rng, Kk, Kk, Cin, Cout, fan_in=Kk * Kk * Cin)
     b = (0.1 * rng.standard_normal(Cout)).astype(np.float32)
-    want = jnp.tanh(jax.lax.conv_general_dilated(
-        x, w, (1, 1), "VALID",
-        dimension_numbers=("NHWC", "HWIO", "NHWC")) + b)
+    want = jax.lax.conv_general_dilated(
+        x, w, (1, 1), "VALID", dimension_numbers=("NHWC", "HWIO", "NHWC"))
+    want = want + b if bias else want
+    want = jnp.tanh(want) if act == "tanh" else want
     got = K.conv2d_fwd(torch.from_numpy(x), torch.from_numpy(w),
-                       torch.from_numpy(b), "tanh")
+                       torch.from_numpy(b) if bias else None, act)
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                atol=ATOL, rtol=RTOL)
@@ -77,22 +91,33 @@ def test_conv2d_fwd_without_bias_or_activation_is_the_plain_conv():
     assert torch.equal(ops.conv2d_valid(x, w), ref.conv2d_valid_ref(x, w))
 
 
-@pytest.mark.parametrize("Ho,K_,W,Cin", [
-    (26, 4, 29, 1), (22, 5, 26, 20), (6, 6, 11, 60), (37, 5, 41, 20),
-    (200, 3, 202, 10)])
-def test_row_block_fits_shared_memory_and_covers_rows(Ho, K_, W, Cin):
-    rb = K.row_block(Ho, K_, W, Cin)
-    assert 1 <= rb <= Ho
-    assert (rb + K_ - 1) * W * Cin * 4 <= K.SMEM_BYTES
-    nblocks = -(-Ho // rb)
-    # rows are spread evenly: no block holds a sliver
-    assert Ho - (nblocks - 1) * rb > 0
-    assert nblocks == 1 or rb * nblocks - Ho < nblocks
-
-
-def test_row_block_refuses_rows_too_wide_for_shared_memory():
-    with pytest.raises(ValueError, match="shared memory"):
-        K.row_block(10, 5, 400, 64)
+@pytest.mark.parametrize("B,H,W,Cin,Kk,Cout,act", [
+    (256, 11, 11, 60, 6, 100, "tanh"),  # chaos-large conv4
+    (2, 24, 70, 64, 3, 36, "tanh"),     # 3 rows of 70 x 64: 53 KB
+    (1, 8, 2000, 128, 3, 16, None),     # 3 rows of 2000 x 128: 3 MB
+])
+def test_conv2d_fwd_launches_its_kernel_for_any_row_width(
+        B, H, W, Cin, Kk, Cout, act, monkeypatch):
+    """The CUDA branch, reached with meta tensors standing in for CUDA ones
+    (the device check stubbed): one counted launch with the shapes, however
+    wide the input rows; the kernel picks its own tiles."""
+    calls = []
+    monkeypatch.setattr(K.build, "check", lambda *a, **k: None)
+    monkeypatch.setattr(K.build, "launch", lambda *a: calls.append(a))
+    meta = lambda *s: torch.empty(s, dtype=torch.float32, device="meta")
+    x, w, b = meta(B, H, W, Cin), meta(Kk, Kk, Cin, Cout), meta(Cout)
+    before = K.conv2d_fwd.launches
+    try:
+        y = K.conv2d_fwd(x, w, b, act)
+    finally:
+        launches = K.conv2d_fwd.launches - before
+        K.conv2d_fwd.launches = before
+    assert y.shape == (B, H - Kk + 1, W - Kk + 1, Cout)
+    assert launches == 1 and len(calls) == 1
+    entry, device, *args = calls[0]
+    assert entry == "repro_conv2d_fwd" and device == x.device
+    assert args[:4] == [x, w, b, y]
+    assert args[4:] == [B, H, W, Cin, Kk, Cout, 1 if act == "tanh" else 0]
 
 
 def test_activation_must_be_none_or_tanh():
