@@ -15,8 +15,12 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
    with uneven dx row blocks and no tanh; for the forward conv non-square
    inputs, input rows of 70 x 64 channels, B=1, K=1 and K=8, Cout no
    multiple of 4, pixel counts no multiple of any tile, the 32 x 128 tile
-   with ragged edges, neither bias nor tanh, an output of 2^31 elements that the kernel writes in one launch
-   per image), and a second call of each bit-identical to the first.
+   with ragged edges, neither bias nor tanh, an output of 2^31 elements
+   that the kernel writes in one launch per image; for the fused backward
+   conv the Table-2 layers at B=8 too, non-square 13 x 17, B=1, K=1, K=9
+   and K = H = W = 12, Cin 1 and 6, Cout 7, 33 and 100, an M' that no dw
+   slice divides, and B=130, where dx tiles span two pixels), and a second
+   call of each bit-identical to the first.
 3. The eval path: chaos-large evaluated through ``get_ops(...).loss`` on
    ``cuda`` over 8 shared-queue batches of 256, with every launch count set
    to 0 just before and read just after (exactly 3 conv + 2 pool + 2 fc +
@@ -35,7 +39,9 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
    the port never calls) and its bound on the card, by CUDA events,
    median of 21 samples taken in alternating turns after warm-up; the
    eval time per batch, the optimizer's time and the training step's time
-   at B=8 and B=256.  The CNN phases then free their memory.
+   at B=8 and B=256; for each conv layer the fused backward's ms and
+   TFLOP/s beside the library pair's.  The CNN phases then free their
+   memory.
 6. Flash parity: the flash-attention kernel against its plain version on
    the card at qwen3-14b's prefill shapes (4 prompts of 1024 over a 2048
    cache, Hq 40 over Hkv 8, D=128, bf16, q and the cache as the strided
@@ -319,6 +325,30 @@ CONV_FWD_CASES = [(BATCH, 29, 29, 1, 4, 20, "tanh", True),
                   (2, 12, 10, 3, 8, 7, None, True),
                   (5, 17, 19, 7, 3, 30, None, False),
                   (70, 13, 13, 9, 3, 99, "tanh", True)]
+#: The fused backward conv's parity cases (B, H, W, Cin, K, Cout, tanh):
+#: chaos-large's three layers at B=256 and at launch/train.py's B=8 (fewer
+#: images than the dx tile's rows, so a dx tile spans several pixels);
+#: chaos-small's conv0 at B=3; Cout 7 without tanh; Cin 6 (no multiple of
+#: 4) with Cout 33; non-square 13x17 (Cin 5, Cout 33); B=1; K=1; K = H = W
+#: = 12 (the kernel takes any K; one output pixel); K=9 without tanh; M' =
+#: 2499 positions, five dw slices of 512 with a ragged last one; B=130,
+#: where dx tiles of 128 rows span two pixels, and ten dw slices.
+CONV_BWD_CASES = [(BATCH, 29, 29, 1, 4, 20, True),
+                  (BATCH, 26, 26, 20, 5, 60, True),
+                  (BATCH, 11, 11, 60, 6, 100, True),
+                  (8, 29, 29, 1, 4, 20, True),
+                  (8, 26, 26, 20, 5, 60, True),
+                  (8, 11, 11, 60, 6, 100, True),
+                  (3, 29, 29, 1, 4, 5, True),
+                  (3, 41, 41, 20, 5, 7, False),
+                  (4, 14, 14, 6, 3, 33, True),
+                  (3, 13, 17, 5, 4, 33, True),
+                  (1, 26, 26, 20, 5, 60, True),
+                  (2, 9, 7, 6, 1, 10, True),
+                  (2, 12, 12, 3, 12, 5, True),
+                  (2, 20, 18, 4, 9, 8, False),
+                  (7, 19, 23, 8, 3, 20, True),
+                  (130, 11, 11, 60, 6, 100, True)]
 #: A forward conv whose output holds 2^31 elements (8 GB): the kernel's
 #: offsets are 32-bit, so it launches once per image.  (B, H, W, Cin, K,
 #: Cout)
@@ -402,18 +432,12 @@ def parity_cases(torch, K, P, FC):
                       lambda l=logits, y=labels: FC.softmax_xent_fwd(l, y),
                       lambda l=logits, y=labels:
                       FC.softmax_xent_fwd_plain(l, y)))
-    for (B, H, Cin, Kk, Cout, tanh) in [
-            (BATCH, 29, 1, 4, 20, True),     # chaos-large conv0
-            (BATCH, 26, 20, 5, 60, True),    # conv2, 13 dx row blocks
-            (BATCH, 11, 60, 6, 100, True),   # conv4, 100 channels
-            (3, 29, 1, 4, 5, True),          # chaos-small conv0, B=3
-            (3, 41, 20, 5, 7, False),        # no tanh, Cout no multiple of 4
-            (4, 14, 6, 3, 33, True)]:        # Cin no multiple of 4, 2 Cout tiles
-        Ho = H - Kk + 1
-        x = u(B, H, H, Cin)
+    for (B, H, Wd, Cin, Kk, Cout, tanh) in CONV_BWD_CASES:
+        Ho, Wo = H - Kk + 1, Wd - Kk + 1
+        x = u(B, H, Wd, Cin)
         w = n(Kk, Kk, Cin, Cout, scale=1 / math.sqrt(Kk * Kk * Cin))
-        y = u(B, Ho, Ho, Cout) if tanh else None
-        dy = n(B, Ho, Ho, Cout)
+        y = u(B, Ho, Wo, Cout) if tanh else None
+        dy = n(B, Ho, Wo, Cout)
         cases.append(("conv2d_bwd_fused", f"x{tuple(x.shape)} "
                       f"w{tuple(w.shape)} tanh={tanh}",
                       lambda x=x, dy=dy, w=w, y=y:
@@ -2568,6 +2592,17 @@ def main() -> int:
               f"bound {bound:.6f} ms by "
               f"{'operations' if t_ops >= t_bytes else 'bytes'} "
               f"({n_ops:.4g} ops, {n_bytes:.4g} bytes)", flush=True)
+        if name == "conv2d_bwd_fused":
+            print(f"backward {label}: conv2d_bwd_fused {t['ms']:.6f} ms, "
+                  f"{n_ops / t['ms'] / 1e9:.2f} TFLOP/s; library pair "
+                  f"(conv2d_input + conv2d_weight) {t['library_ms']:.6f} ms,"
+                  f" {n_ops / t['library_ms'] / 1e9:.2f} TFLOP/s ({n_ops:.4g}"
+                  f" FLOP of dx, dw and dz)", flush=True)
+    row = totals["conv2d_bwd_fused"]
+    print(f"conv2d_bwd_fused per chaos-large step of {BATCH} (3 layers): "
+          f"kernel {row['ms']:.6f} ms, library pair {row['library_ms']:.6f}"
+          f" ms, plain {row['plain_ms']:.6f} ms, bound {row['bound_ms']:.6f}"
+          f" ms", flush=True)
 
     def eval_once():
         with torch.inference_mode():

@@ -45,7 +45,7 @@ C_API = {
     "repro_maxpool2d_fwd": [_P, _P] + [_I] * 5 + [_P],
     "repro_fc_fwd": [_P, _P, _P, _P] + [_I] * 4 + [_P],
     "repro_softmax_xent_fwd": [_P, _P, _P, _P] + [_I] * 2 + [_P],
-    "repro_conv2d_bwd": [_P] * 8 + [_I] * 7 + [_P],
+    "repro_conv2d_bwd": [_P] * 8 + [_I] * 6 + [_P],
     "repro_conv2d_bwd_scratch": [_I] * 7,
     "repro_conv2d_dx": [_P] * 4 + [_I] * 6 + [_P],
     "repro_conv2d_dw": [_P] * 4 + [_I] * 7 + [_P],

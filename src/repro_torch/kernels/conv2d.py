@@ -6,9 +6,10 @@ fused bias + tanh.  On a CUDA tensor it launches ``csrc/conv2d.cu`` (or
 raises); on a CPU tensor it runs ``conv2d_fwd_plain``.
 
 ``conv2d_bwd_fused`` replaces ``repro.kernels.conv2d.conv2d_bwd_fused``:
-(dx, dw, db) of that conv from one launch of ``csrc/conv2d_bwd.cu``, with
-the tanh derivative fused when the forward output is given; on a CPU
-tensor it runs ``conv2d_bwd_fused_plain``.
+(dx, dw, db) of that conv from one launch of ``csrc/conv2d_bwd.cu`` (four
+device kernels: dz and the transposed weights, dx, dw's partial sums, their
+sum), with the tanh derivative fused when the forward output is given; on
+a CPU tensor it runs ``conv2d_bwd_fused_plain``.
 
 ``conv2d_dx`` and ``conv2d_dw`` replace the reference's split backward
 (``repro.kernels.conv2d.conv2d_dx`` / ``conv2d_dw``), the un-fused baseline
@@ -31,11 +32,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import conv2d_valid_ref
 
 _ACTIVE_TRACE = None
-#: Largest kernel size the backward kernel is compiled for.
+#: Largest kernel size the split dw kernel is compiled for.
 BWD_MAX_K = 8
-#: Shared memory a dx block of the backward kernels may take: they opt in
-#: above the default (``kDxSmem`` in ``csrc/conv2d_bwd.cu`` and
-#: ``csrc/conv2d_split_bwd.cu``).
+#: Shared memory a dx block of the split backward may take: it opts in
+#: above the default (``kDxSmem`` in ``csrc/conv2d_split_bwd.cu``).
 BWD_SMEM_BYTES = 100 * 1024
 
 
@@ -105,7 +105,7 @@ conv2d_fwd.launches = 0
 
 
 def _slab_rows(what: str, K: int, W: int, Cout: int) -> int:
-    """Most input rows a dx block may take: its dz slab of rows + K - 1
+    """Most input rows a split dx block may take: its dz slab of rows + K - 1
     rows, each W + K - 1 wide with the column margins, fits in
     ``BWD_SMEM_BYTES``."""
     fit = BWD_SMEM_BYTES // ((W + K - 1) * Cout * 4) - (K - 1)
@@ -115,14 +115,6 @@ def _slab_rows(what: str, K: int, W: int, Cout: int) -> int:
             f"channels do not fit in {BWD_SMEM_BYTES} bytes of shared "
             f"memory")
     return fit
-
-
-def dx_row_block(H: int, K: int, W: int, Cout: int) -> int:
-    """Input rows per dx block of the backward kernel: as few blocks per
-    image as keep the dz slab within ``BWD_SMEM_BYTES``, rows spread
-    evenly."""
-    nblocks = -(-H // min(_slab_rows("conv2d_bwd_fused", K, W, Cout), H))
-    return -(-H // nblocks)
 
 
 def dz_of(dy, y=None):
@@ -143,10 +135,24 @@ def conv2d_bwd_fused_plain(x, dy, w, y=None):
             dz.sum(dim=(0, 1, 2)).float())
 
 
+def _bwd_offsets_fit(B, H, W, Cin, K, Cout) -> bool:
+    """Whether ``csrc/conv2d_bwd.cu``'s 32-bit offsets reach every element
+    of these shapes: x with 16 images to spare, dz's offsets of input
+    pixels, and the scratch (the transposed weights, dz and at most 2^22 +
+    (K*K*Cin + 1)*Cout partial sums).  The kernel refuses the rest."""
+    Ho, Wo = H - K + 1, W - K + 1
+    z_span = (B * Ho + H) * Wo * Cout + W * Cout
+    scratch = z_span + 2 * (K * K * Cin + 1) * Cout + 2 ** 22 + 16
+    return (max(H, W) < 2 ** 15 and (B + 16) * H * W * Cin < 2 ** 31
+            and scratch < 2 ** 31)
+
+
 def conv2d_bwd_fused(x, dy, w, y=None):
     """(dx, dw, db) of ``conv2d_fwd``: x (B, H, W, Cin), dy (B, Ho, Wo,
     Cout), w (K, K, Cin, Cout), y (B, Ho, Wo, Cout) the forward's tanh
-    output or None, all f32 -> dx like x, dw like w, db (Cout,)."""
+    output or None, all f32 -> dx like x, dw like w, db (Cout,).  The CUDA
+    kernel takes every kernel size; one call is one counted launch of its
+    four device kernels."""
     if x.device.type == "cpu":
         return conv2d_bwd_fused_plain(x, dy, w, y)
     B, H, W, Cin = x.shape
@@ -154,28 +160,27 @@ def conv2d_bwd_fused(x, dy, w, y=None):
     if K != K2 or Cin_w != Cin or not 0 < K <= min(H, W) or B == 0:
         raise ValueError(f"conv2d_bwd_fused: x {tuple(x.shape)} does not "
                          f"match w {tuple(w.shape)}")
-    if K > BWD_MAX_K:
-        raise ValueError(f"conv2d_bwd_fused: the CUDA kernel takes kernel "
-                         f"sizes up to {BWD_MAX_K}, got {K}")
+    if not _bwd_offsets_fit(B, H, W, Cin, K, Cout):
+        raise ValueError(f"conv2d_bwd_fused: x {tuple(x.shape)} with w "
+                         f"{tuple(w.shape)} is too large for the CUDA "
+                         f"kernel's 32-bit offsets")
     Ho, Wo = H - K + 1, W - K + 1
     build.check("x", x, torch.float32, x.shape, x.device)
     build.check("dy", dy, torch.float32, (B, Ho, Wo, Cout), x.device)
     build.check("w", w, torch.float32, w.shape, x.device)
     if y is not None:
         build.check("y", y, torch.float32, (B, Ho, Wo, Cout), x.device)
-    rb = dx_row_block(H, K, W, Cout)
-    with torch.cuda.device(x.device):
-        n_part = build.lib().repro_conv2d_bwd_scratch(B, H, W, Cin, K, Cout,
-                                                      rb)
-    if n_part < 0:
+    n_scratch = build.lib().repro_conv2d_bwd_scratch(B, H, W, Cin, K, Cout,
+                                                     int(y is not None))
+    if n_scratch < 0:
         raise RuntimeError(f"repro_conv2d_bwd_scratch failed: CUDA error "
-                           f"{-n_part}")
+                           f"{-n_scratch}")
     dx = torch.empty_like(x)
     dw = torch.empty_like(w)
     db = torch.empty((Cout,), dtype=torch.float32, device=x.device)
-    part = torch.empty((n_part,), dtype=torch.float32, device=x.device)
-    build.launch("repro_conv2d_bwd", x.device, x, dy, y, w, dx, dw, db, part,
-                 B, H, W, Cin, K, Cout, rb)
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=x.device)
+    build.launch("repro_conv2d_bwd", x.device, x, dy, y, w, dx, dw, db,
+                 scratch, B, H, W, Cin, K, Cout)
     record_launch(conv2d_bwd_fused)
     return dx, dw, db
 

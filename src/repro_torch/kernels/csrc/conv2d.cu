@@ -26,7 +26,8 @@
 // across images, so a layer with few pixels per image (conv4: 36) still
 // fills its tiles.
 //
-// Tiles: a block computes BM x BN outputs, stepping along Kd in chunks of
+// Tiles (the loop is tile_loop in conv2d_common.cuh, which the backward
+// shares): a block computes BM x BN outputs, stepping along Kd in chunks of
 // kBK.  Both the A chunk (stored k-major, padded so the stores and the
 // float4 reads are free of bank conflicts) and the Wm chunk are staged in
 // shared memory with cp.async, double-buffered, so the next chunk loads
@@ -49,16 +50,16 @@
 // The plan (conv2d_fwd_plan) picks the tile from the shapes out of a fixed
 // menu, in order: 128 x 64 (8 x 8 a thread; only where Cout > 32), 32 x 128
 // (4 x 8; only where Cout > 64), 128 x 32 (8 x 4), 32 x 32 (4 x 4).  It
-// takes the first that launches two blocks per SM (the count read from the
-// device), else the last.  A 32 x 128 tile spans up to 128 output channels
-// in one block column, so each pixel's A row, the 4-byte gather that costs
-// the most copies, is staged once and not once per 32 channels: per chunk
-// of a 4096-output tile 512 A copies and 512 Wm copies, against 2048 and
-// 128 for 128 x 32.  At chaos-large's B=256 the plan takes 128 x 32 at
-// conv0 (Cout 20), 128 x 64 at conv2 (Cout 60) and 32 x 128 at conv4 (Cout
-// 100, 288 blocks, where 128 x 64 would fill only 144); at B=8 it takes 32
-// x 32 everywhere.  Tensors of 2^31 elements or more are cut into launches
-// of whole images.
+// takes the first that launches two blocks per SM (min_blocks, the conv
+// kernels' one launch-geometry rule), else the last.  A 32 x 128 tile
+// spans up to 128 output channels in one block column, so each pixel's A
+// row, the 4-byte gather that costs the most copies, is staged once and
+// not once per 32 channels: per chunk of a 4096-output tile 512 A copies
+// and 512 Wm copies, against 2048 and 128 for 128 x 32.  At chaos-large's
+// B=256 the plan takes 128 x 32 at conv0 (Cout 20), 128 x 64 at conv2 (Cout
+// 60) and 32 x 128 at conv4 (Cout 100, 288 blocks, where 128 x 64 would
+// fill only 144); at B=8 it takes 32 x 32 everywhere.  Tensors of 2^31
+// elements or more are cut into launches of whole images.
 //
 // Order of sums: every output is one thread's fmaf chain over kd = 0 ..
 // Kd - 1 in (kh, kw, ci) order from 0, then + bias, then tanhf; the zero
@@ -69,10 +70,9 @@
 
 #include <climits>
 
-namespace {
+#include "conv2d_common.cuh"
 
-constexpr int kBK = 16;     // Kd per chunk
-constexpr int kStages = 2;  // chunks in shared memory: double buffering
+namespace {
 
 struct Args {
   const float* x;
@@ -83,46 +83,19 @@ struct Args {
   int H, W, Cin, K, Cout, Ho, Wo, act;
 };
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most kStages - 2 groups of copies are in flight.
-__device__ __forceinline__ void cp_async_wait_stage() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
-}
-
 // kVec: Cout is a multiple of 4 and w, y are 16-byte aligned, so Wm moves
 // in 16-byte copies and y in float4 stores.
 template <int BM, int BN, int TM, int TN, bool kVec>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN),
                                   512 / ((BM / TM) * (BN / TN)))
 conv2d_fwd_kernel(Args a) {
-  constexpr int NT = (BM / TM) * (BN / TN);
-  constexpr int TC = BN / TN;      // thread columns
-  constexpr int AS = BM + 4;       // A's row stride: 4 mod 32 banks
+  using S = TileShape<BM, BN, TM, TN>;
+  constexpr int NT = S::NT;
   constexpr int MS = 8 * BM / NT;  // pixels a thread gathers
-  constexpr int GM = TM / 4, GN = TN / 4;
   constexpr int NW = kVec ? kBK * BN / 4 / NT : kBK * BN / NT;
-  static_assert(TM % 4 == 0 && TN % 4 == 0 && NT % 32 == 0, "tile");
   static_assert(MS * NT == 8 * BM && kBK == 16, "gather");
   static_assert(NW * NT * (kVec ? 4 : 1) == kBK * BN, "weight copies");
-  __shared__ __align__(16) float As[kStages][kBK][AS];
-  __shared__ __align__(16) float Ws[kStages][kBK][BN];
+  __shared__ TileSmem<BM, BN> sm;
 
   const int t = threadIdx.x;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
@@ -155,47 +128,6 @@ conv2d_fwd_kernel(Args a) {
   }
 
   auto load = [&](int chunk, int st) {
-    const int k0 = chunk * kBK;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = kh[j] * rowW + rem[j];
-      const bool kin = kh[j] < a.K;
-#pragma unroll
-      for (int s = 0; s < MS; ++s) {
-        const bool ok = kin && rowbase[s] >= 0;
-        cp_async4(&As[st][kk + 8 * j][(t >> 3) + s * (NT / 8)],
-                  ok ? a.x + rowbase[s] + col : a.x, ok);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < NW; ++i) {
-      const int f = t + i * NT;
-      if (kVec) {
-        const int k = f / (BN / 4), c = 4 * (f % (BN / 4));
-        const int kd = k0 + k, n = n0 + c;
-        const bool ok = kd < Kd && n < a.Cout;
-        cp_async16(&Ws[st][k][c], ok ? a.w + kd * a.Cout + n : a.w, ok);
-      } else {
-        const int k = f / BN, c = f % BN;
-        const int kd = k0 + k, n = n0 + c;
-        const bool ok = kd < Kd && n < a.Cout;
-        cp_async4(&Ws[st][k][c], ok ? a.w + kd * a.Cout + n : a.w, ok);
-      }
-    }
-  };
-
-  const int tc = t % TC, tr = t / TC;
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  // Chunk c lands in stage c % kStages.  Before chunk c is multiplied, the
-  // copies of chunk c + kStages - 1 start, into the stage that every thread
-  // finished multiplying before this iteration's barrier.
-  const int nchunks = (Kd + kBK - 1) / kBK;
-  auto next = [&](int chunk) {
     if (chunk > 0) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
@@ -206,47 +138,47 @@ conv2d_fwd_kernel(Args a) {
         }
       }
     }
-    if (chunk < nchunks) load(chunk, chunk % kStages);
-    cp_async_commit();
-  };
-  for (int c = 0; c < kStages - 1; ++c) next(c);
-  for (int c = 0; c < nchunks; ++c) {
-    cp_async_wait_stage();
-    __syncthreads();
-    next(c + kStages - 1);
-    const int st = c % kStages;
+    const int k0 = chunk * kBK;
 #pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      float av[TM], bv[TN];
+    for (int j = 0; j < 2; ++j) {
+      const int col = kh[j] * rowW + rem[j];
+      const bool kin = kh[j] < a.K;
 #pragma unroll
-      for (int g = 0; g < GM; ++g) {
-        const float4 v = *reinterpret_cast<const float4*>(
-            &As[st][k][g * (BM / GM) + 4 * tr]);
-        av[4 * g] = v.x, av[4 * g + 1] = v.y, av[4 * g + 2] = v.z,
-        av[4 * g + 3] = v.w;
+      for (int s = 0; s < MS; ++s) {
+        const bool ok = kin && rowbase[s] >= 0;
+        cp_async4(&sm.a[st][kk + 8 * j][(t >> 3) + s * (NT / 8)],
+                  ok ? a.x + rowbase[s] + col : a.x, ok);
       }
-#pragma unroll
-      for (int g = 0; g < GN; ++g) {
-        const float4 v = *reinterpret_cast<const float4*>(
-            &Ws[st][k][g * (BN / GN) + 4 * tc]);
-        bv[4 * g] = v.x, bv[4 * g + 1] = v.y, bv[4 * g + 2] = v.z,
-        bv[4 * g + 3] = v.w;
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
-  }
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      const int f = t + i * NT;
+      if (kVec) {
+        const int k = f / (BN / 4), c = 4 * (f % (BN / 4));
+        const int kd = k0 + k, n = n0 + c;
+        const bool ok = kd < Kd && n < a.Cout;
+        cp_async16(&sm.b[st][k][c], ok ? a.w + kd * a.Cout + n : a.w, ok);
+      } else {
+        const int k = f / BN, c = f % BN;
+        const int kd = k0 + k, n = n0 + c;
+        const bool ok = kd < Kd && n < a.Cout;
+        cp_async4(&sm.b[st][k][c], ok ? a.w + kd * a.Cout + n : a.w, ok);
+      }
+    }
+  };
 
+  float acc[TM][TN];
+  tile_loop<BM, BN, TM, TN>(sm, (Kd + kBK - 1) / kBK, load, acc);
+
+  const int tc = t % S::TC, tr = t / S::TC;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int m = m0 + (i / 4) * (BM / GM) + 4 * tr + i % 4;
+    const int m = m0 + S::row(i, tr);
     if (m >= a.M) continue;
     float* yr = a.y + m * a.Cout;
 #pragma unroll
-    for (int g = 0; g < GN; ++g) {
-      const int n = n0 + g * (BN / GN) + 4 * tc;
+    for (int g = 0; g < S::GN; ++g) {
+      const int n = n0 + S::col(4 * g, tc);
       float v[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
@@ -275,9 +207,9 @@ constexpr Tile kTiles[] = {
     {128, 64, 8, 8}, {32, 128, 4, 8}, {128, 32, 8, 4}, {32, 32, 4, 4}};
 constexpr int kLast = sizeof(kTiles) / sizeof(kTiles[0]) - 1;
 
-// The first tile of the menu that launches min_blocks blocks, skipping a
-// tile wider than 32 where half its columns or more would idle.
-int conv2d_fwd_plan(int M, int Cout, int min_blocks) {
+// The first tile of the menu that launches `want` blocks, skipping a tile
+// wider than 32 where half its columns or more would idle.
+int conv2d_fwd_plan(int M, int Cout, int want) {
 #ifdef REPRO_CONV2D_FWD_TILE  // a build of conv2d_tiles.py: one tile only
   return REPRO_CONV2D_FWD_TILE;
 #endif
@@ -286,7 +218,7 @@ int conv2d_fwd_plan(int M, int Cout, int min_blocks) {
     if (t.bn > 32 && 2 * Cout <= t.bn) continue;
     const long long blocks = (long long)((M + t.bm - 1) / t.bm) *
                              ((Cout + t.bn - 1) / t.bn);
-    if (blocks >= min_blocks) return i;
+    if (blocks >= want) return i;
   }
   return kLast;
 }
@@ -330,17 +262,15 @@ extern "C" int repro_conv2d_fwd(const float* x, const float* w,
   const int per = static_cast<int>(INT_MAX / img < B ? INT_MAX / img : B);
   const bool vec = Cout % 4 == 0 && reinterpret_cast<size_t>(w) % 16 == 0 &&
                    reinterpret_cast<size_t>(y) % 16 == 0;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int blocks = 0;
+  cudaError_t err = min_blocks(&blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   for (int n0 = 0; n0 < B; n0 += per) {
     const int nb = B - n0 < per ? B - n0 : per;
     const Args a{x + n0 * x_img, w, b, y + n0 * y_img, nb * Ho * Wo,
                  H, W, Cin, K, Cout, Ho, Wo, act};
-    err = launch_plan(conv2d_fwd_plan(a.M, Cout, 2 * sms), a, vec, s);
+    err = launch_plan(conv2d_fwd_plan(a.M, Cout, blocks), a, vec, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaSuccess);

@@ -1,448 +1,660 @@
 // Fused backward of the valid, stride-1 convolution NHWC x HWIO -> NHWC:
-// dx, dw and db from one launch, with the tanh derivative fused when the
-// forward output y is given (dz = dy * (1 - y^2), else dz = dy), fp32 on
-// CUDA cores.
+// dx, dw and db from one entry point, with the tanh derivative fused when
+// the forward output y is given (dz = dy * (1 - y^2), else dz = dy), fp32
+// on CUDA cores, as two register-tiled implicit GEMMs.
 //
-// Replaces: src/repro/kernels/conv2d.py conv2d_bwd_fused (_bwd_body,
-// _conv_bwd_kernel, _conv_bwd_tanh_kernel), the Pallas TPU kernel that
-// walks K-1-padded dz slabs once, writes dx per slab and sums dw/db across
-// the sequential batch grid in VMEM scratch.
+// Replaces: src/repro/kernels/conv2d.py conv2d_bwd_fused (:197, body
+// _bwd_body :133-182), the Pallas TPU kernel that walks K-1-padded dz slabs
+// once, writes dx per slab and sums dw/db across the sequential batch grid
+// in VMEM scratch.
 //
 // Bound on the H100: operations.  dx and dw each cost the forward's
-// 2*B*Ho*Wo*Cout*K*K*Cin FLOP; at chaos-large's B=256 that is 7-8 GFLOP per
-// inner layer against ~10-20 MB of activations and gradients.
+// 2*B*Ho*Wo*Cout*K*K*Cin FLOP, and dz 4 FLOP an element; at chaos-large's
+// B=256 that is 23.1 GFLOP over its three conv layers against 67 TFLOP/s
+// of fp32 FMAs, and with conv0's bytes (it moves more than it computes)
+// 0.350 ms a step.  The inner layers do hundreds of FLOP per byte, so the
+// design is about feeding the FMA pipes.  TF32 would lose the
+// digits the parity limits hold, so the kernels stay in fp32 FMAs.
 //
-// Design: one cooperative launch of as many 256-thread blocks as the card
-// holds at once.  The blocks copy w transposed, meet at a grid-wide
-// barrier, walk a list of work items, meet at a second barrier and finish
-// the weight gradient:
-//  * dw items, one per (Cin tile of up to 8, Cout tile of 32, chunk of the
-//    B*Ho output rows): each warp owns one input channel and each lane one
-//    output channel, and keeps all K*K taps' partial sums in registers.
-//    Along an output row it slides a K x K window of x through registers,
-//    so each position costs K loads of x and one of dz for K*K FMAs.  With
-//    fewer than 8 input channels the spare warps take interleaved rows and
-//    are summed in shared memory in warp order.  The item's partial sums
-//    of dw (and of db, from the same dz loads) go to a scratch buffer.
-//  * dx items, one per (image, block of input rows): the dz rows the block
-//    needs, the K-1 halo and the K-1 column margins on both sides, are
-//    staged in shared memory once, zero where they fall outside dz (bounds
-//    checks here, no padding in device memory; up to kDxSmem bytes, opted
-//    in above the default 48 KB).  Threads span Cin; each keeps 4 input
-//    pixels x 4 input channels in registers (one channel where Cin is no
-//    multiple of 4) and reads the flipped taps of w from a copy
-//    transposed to (tap, Cout, Cin), so that a warp's weight loads are
-//    contiguous and each float4 load feeds 16 FMAs.
-//  * after the second barrier, each dw and db entry is the sum of its
-//    chunks' partials in chunk order.
-// The TPU kernel instead carries dw/db across its sequential grid; here the
-// chunks run in parallel and the barrier replaces that order.  Every sum
-// runs in an order fixed by the shapes and the card's SM count alone, with
-// no atomics, so two runs on one card give the same bits.  dz is
-// recomputed where it is read, rounded as dy * (1 - y*y) with no
-// contraction, as the plain version rounds it.
-#include <cooperative_groups.h>
+// Four device kernels on the caller's stream, one wrapper launch:
+//  1. prep: dz = dy * (1 - y*y), rounded as __fmul_rn(dy, __fsub_rn(1,
+//     __fmul_rn(y, y))) with no contraction, as the plain version rounds
+//     it, into scratch (skipped without y: dz is dy); and w transposed per
+//     tap to wt (K, K, Cout, Cin).
+//  2. dx as C[M = B*H*W, N = Cin] = A[M, (kh, kw, co)] . wt[(kh, kw, co),
+//     Cin], where A's entry is dz[n, i - kh, j - kw, co] for input pixel
+//     (i, j) of image n.  M is ordered (input pixel, image), so the rows of
+//     a tile share one pixel, or a few consecutive ones where B is smaller
+//     than the tile (B=8) or no multiple of it.  A tile walks only the
+//     taps (kh, kw) that reach one of its pixels (the box from its first
+//     pixel's to its last's; rows outside a tap's reach are zero-filled),
+//     so no FMA goes to the K-1 padding of the full correlation (at
+//     chaos-large's conv2 26^2 input pixels against 22^2 outputs, 1.4x the
+//     useful work; at conv4 3.4x).  Each thread keeps its rows' pixel and
+//     dz offset in registers and walks (kh, kw, co) forward chunk by chunk.
+//  3. dw and db as C[(kh, kw, ci) + 1, Cout] = X^T . DZ, reduced over M' =
+//     B*Ho*Wo: row (kh, kw, ci) of X^T at position (n, oh, ow) is x[n, oh +
+//     kh, ow + kw, ci], and the last row is all ones, so that row's sums
+//     are db (fmaf(1, dz, acc) is acc + dz exactly).  The rows are dw's own
+//     (K, K, Cin, Cout) layout.  Within one tap Cin is contiguous in x, so
+//     X^T moves in 16-byte copies where Cin % 4 == 0 and 4-byte copies
+//     otherwise; DZ in 16-byte copies where Cout % 4 == 0.  M' is cut into
+//     slices of L positions, L a function of the shapes alone (about
+//     kDwBlocks blocks in all, at least kSliceMin positions, a multiple of
+//     kBK), and each block writes its tile's partial sums over its slice to
+//     scratch.
+//  4. Each dw and db entry is the sum of its slices' partials: lane y of 8
+//     sums slices y, y + 8, ... in order, then the 8 lane sums are added in
+//     lane order.
+// The GEMM loop is conv2d_common.cuh's (cp.async double buffering in
+// chunks of kBK, float4 register tiles), shared with the forward.
+//
+// The tile plan.  The menu is the forward's four tiles (128 x 64, 32 x 128,
+// 128 x 32, 32 x 32) and a 128 x 8 tile (4 x 4 a thread) for narrow N (dx
+// at Cin 1).  dx takes the first tile that launches eight blocks an SM
+// (four times min_blocks, conv2d_common.cuh's rule), skipping a tile wider
+// than 8 where half its columns or more would idle and the 8-wide one
+// where N > 8; else the fit tile with the most blocks.  Its tiles run
+// centre-out (dx_tile_start): a tile's work follows the taps that reach
+// its pixels, so the heavy middle starts first and many blocks let the
+// card even out the rest.  At chaos-large's B=256 dx takes 128 x 8 at conv0,
+// 128 x 32 at conv2 and 32 x 32 at conv4 (1936 blocks, where 128 x 32 gave
+// 484 and was 12 % slower; kernels/conv2d_tiles.py times every tile); at
+// B=8 32 x 32 at conv2 and conv4.  dw takes the first of the forward's four
+// tiles whose rows and columns are not half idle, else 32 x 32, from the
+// shapes alone: 32 x 32 at conv0, 128 x 64 at conv2 and conv4.  Every
+// kernel size runs: K enters only the gathers.  No instance needs more
+// than the default 48 KB of shared memory; the launch bounds keep each
+// within 128 registers.
+//
+// Order of sums.  dx: each element is one thread's fmaf chain over (kh,
+// kw, co) in that order from 0, zero-filled taps adding exact zeros, so its
+// bits do not depend on the tile.  dw, db: one thread's fmaf chain over its
+// slice's positions in (n, oh, ow) order, then the slices in the fixed
+// order of step 4.  The slices and the dw tile come from the shapes alone;
+// nothing reads the SM count or occupancy into any sum, nothing uses
+// atomics or a cooperative launch, so two runs give the same bits on any
+// card.  Offsets are 32-bit: the wrapper refuses shapes that do not fit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <utility>
+#include <climits>
 
-namespace cg = cooperative_groups;
+#include "conv2d_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kPx = 4;      // dx: input pixels per thread
-constexpr int kMaxK = 8;    // kernel sizes with a compiled dw path
-// Shared memory a dx item's dz slab may take (opted in per kernel); the
-// caller picks the rows per item to fit it.
-constexpr int kDxSmem = 100 * 1024;
+constexpr int kPrepThreads = 256;
+constexpr int kDwBlocks = 512;  // dw: blocks the slices aim at, in all
+constexpr int kSliceMin = 512;  // dw: least positions a slice
+constexpr int kSumLanes = 8;    // step 4: slice lanes an entry
 
-struct Args {
-  const float* x;
-  const float* dy;
-  const float* y;
-  const float* w;
-  float* dx;
-  float* dw;
-  float* db;
-  float* part;                // dw items' partial sums
-  float* wt;                  // w transposed to (K*K, Cout, Cin)
+struct Shapes {
   int B, H, W, Cin, K, Cout, Ho, Wo;
-  int rb, n_rblk, cb;         // dx: rows per block, blocks per image, lanes
-  int tci, wsl;               // dw: channels per Cin tile, warps per channel
-  int n_ci_t, n_co_t;         // dw: Cin tiles, Cout tiles of 32
-  int rpc, n_chunks;          // dw: output rows per chunk, chunks
-  int tile_entries;           // dw: partials per (tile, chunk)
-  int n_dw, n_dx;             // work items of each kind, in list order
 };
 
-__device__ __forceinline__ float dz_at(const Args& a, size_t i) {
-  const float g = a.dy[i];
-  if (a.y == nullptr) return g;
-  const float v = a.y[i];
-  return __fmul_rn(g, __fsub_rn(1.f, __fmul_rn(v, v)));
-}
+struct Tile {
+  int bm, bn, tm, tn;
+};
+// The menu: the forward's four tiles, then one for narrow N (dx only).
+constexpr Tile kTiles[] = {{128, 64, 8, 8},
+                           {32, 128, 4, 8},
+                           {128, 32, 8, 4},
+                           {32, 32, 4, 4},
+                           {128, 8, 4, 4}};
+constexpr int kTileCount = sizeof(kTiles) / sizeof(kTiles[0]);
+constexpr int kDwTiles = 4;     // dw takes the first four
+constexpr int kCatchAll = 3;   // 32 x 32
 
-// ---------------------------------------------------------------- dw, db
-// Position oj = oj0 + S of an output row: the window holds x[oi+kh, oj+kw]
-// for all taps in slot (oj + kw) % K, so sliding by one column loads one
-// column and moves nothing.  S is a constant, so every slot index is.
-template <int K, int S>
-__device__ __forceinline__ void dw_pos(const Args& a, const float* xr,
-                                       size_t zr, int oj, float (&win)[K][K],
-                                       float (&acc)[K * K], float& accb) {
-  const size_t rs = (size_t)a.W * a.Cin;
-#pragma unroll
-  for (int kh = 0; kh < K; ++kh)
-    win[kh][(S + K - 1) % K] =
-        __ldg(xr + kh * rs + (size_t)(oj + K - 1) * a.Cin);
-  const float z = dz_at(a, zr + (size_t)oj * a.Cout);
-  accb += z;
-#pragma unroll
-  for (int kh = 0; kh < K; ++kh)
-#pragma unroll
-    for (int kw = 0; kw < K; ++kw)
-      acc[kh * K + kw] = fmaf(win[kh][(S + kw) % K], z, acc[kh * K + kw]);
-}
-
-// K positions from oj0; with `tail`, only those before Wo.  Whole groups
-// carry no bounds checks, so their loads can all be issued up front.
-template <int K, bool kTail, int... S>
-__device__ __forceinline__ void dw_group(const Args& a, const float* xr,
-                                         size_t zr, int oj0,
-                                         float (&win)[K][K],
-                                         float (&acc)[K * K], float& accb,
-                                         std::integer_sequence<int, S...>) {
-  ((!kTail || oj0 + S < a.Wo
-        ? dw_pos<K, S>(a, xr, zr, oj0 + S, win, acc, accb)
-        : void()),
-   ...);
-}
-
-// One output row of dz against the K x K window of x sliding along it.
-template <int K>
-__device__ __forceinline__ void dw_row(const Args& a, const float* xr,
-                                       size_t zr, float (&acc)[K * K],
-                                       float& accb) {
-  const size_t rs = (size_t)a.W * a.Cin;
-  float win[K][K];
-#pragma unroll
-  for (int kh = 0; kh < K; ++kh)
-#pragma unroll
-    for (int kw = 0; kw < K - 1; ++kw)
-      win[kh][kw] = __ldg(xr + kh * rs + (size_t)kw * a.Cin);
-  constexpr auto seq = std::make_integer_sequence<int, K>{};
-  int oj0 = 0;
-  for (; oj0 + K <= a.Wo; oj0 += K)
-    dw_group<K, false>(a, xr, zr, oj0, win, acc, accb, seq);
-  if (oj0 < a.Wo) dw_group<K, true>(a, xr, zr, oj0, win, acc, accb, seq);
-}
-
-// The sum over the wsl warps that split one channel's rows, in warp order;
-// meaningful in the warps with wsub == 0.  Every thread of the block calls it.
-__device__ __forceinline__ float sum_warps(const Args& a, float* red, float v,
-                                           int wsub) {
-  if (a.wsl == 1) return v;
-  red[threadIdx.x] = v;
-  __syncthreads();
-  if (wsub == 0)
-    for (int k = 1; k < a.wsl; ++k) v += red[threadIdx.x + k * a.tci * 32];
-  __syncthreads();
-  return v;
-}
-
-template <int K>
-__device__ void dw_item(const Args& a, int item, float* red) {
-  const int tile = item / a.n_chunks, chunk = item % a.n_chunks;
-  const int ci_t = tile / a.n_co_t, co_t = tile % a.n_co_t;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int cil = warp % a.tci, wsub = warp / a.tci;
-  const int co = co_t * 32 + lane, ci = ci_t * a.tci + cil;
-  float acc[K * K];
-  float accb = 0.f;
-#pragma unroll
-  for (int t = 0; t < K * K; ++t) acc[t] = 0.f;
-  if (co < a.Cout && ci < a.Cin) {
-    const int r_end = min(a.B * a.Ho, (chunk + 1) * a.rpc);
-    for (int r = chunk * a.rpc + wsub; r < r_end; r += a.wsl) {
-      const int n = r / a.Ho, oi = r - n * a.Ho;
-      const float* xr = a.x + (((size_t)n * a.H + oi) * a.W) * a.Cin + ci;
-      dw_row<K>(a, xr, (size_t)r * a.Wo * a.Cout + co, acc, accb);
+// ----------------------------------------------------------------- prep
+__global__ void __launch_bounds__(kPrepThreads)
+    prep_kernel(const float* __restrict__ dy, const float* __restrict__ y,
+                float* __restrict__ dz, int n_dz, bool vec,
+                const float* __restrict__ w, float* __restrict__ wt,
+                int taps, int Cin, int Cout) {
+  const int stride = gridDim.x * blockDim.x;
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  if (y != nullptr) {
+    const int n4 = vec ? n_dz / 4 : 0;
+    for (int i = first; i < n4; i += stride) {
+      const float4 g = __ldg(reinterpret_cast<const float4*>(dy) + i);
+      const float4 v = __ldg(reinterpret_cast<const float4*>(y) + i);
+      reinterpret_cast<float4*>(dz)[i] =
+          make_float4(__fmul_rn(g.x, __fsub_rn(1.f, __fmul_rn(v.x, v.x))),
+                      __fmul_rn(g.y, __fsub_rn(1.f, __fmul_rn(v.y, v.y))),
+                      __fmul_rn(g.z, __fsub_rn(1.f, __fmul_rn(v.z, v.z))),
+                      __fmul_rn(g.w, __fsub_rn(1.f, __fmul_rn(v.w, v.w))));
+    }
+    for (int i = 4 * n4 + first; i < n_dz; i += stride) {
+      const float g = __ldg(dy + i), v = __ldg(y + i);
+      dz[i] = __fmul_rn(g, __fsub_rn(1.f, __fmul_rn(v, v)));
     }
   }
-  // entry e of a (tile, chunk): (tap * tci + cil) * 32 + lane, then 32 db
-  float* part =
-      a.part + ((size_t)tile * a.n_chunks + chunk) * a.tile_entries;
-#pragma unroll
-  for (int t = 0; t < K * K; ++t) {
-    const float v = sum_warps(a, red, acc[t], wsub);
-    if (wsub == 0) part[(t * a.tci + cil) * 32 + lane] = v;
-  }
-  const float vb = sum_warps(a, red, accb, wsub);
-  if (wsub == 0 && cil == 0) part[K * K * a.tci * 32 + lane] = vb;
-}
-
-// After the second barrier: each entry is the sum of its chunks in chunk
-// order.
-__device__ void finish_dw(const Args& a) {
-  const int KK = a.K * a.K;
-  const size_t total = (size_t)a.n_ci_t * a.n_co_t * a.tile_entries;
-  for (size_t g = (size_t)blockIdx.x * blockDim.x + threadIdx.x; g < total;
-       g += (size_t)gridDim.x * blockDim.x) {
-    const int tile = (int)(g / a.tile_entries);
-    const int e = (int)(g % a.tile_entries);
-    const int ci_t = tile / a.n_co_t, co_t = tile % a.n_co_t;
-    const int lane = e % 32;
-    const int co = co_t * 32 + lane;
-    const int db_at = KK * a.tci * 32;
-    int ci = 0, tap = 0;
-    bool dw_entry = e < db_at;
-    if (dw_entry) {
-      tap = e / (a.tci * 32);
-      ci = ci_t * a.tci + (e / 32) % a.tci;
-      if (ci >= a.Cin || co >= a.Cout) continue;
-    } else if (ci_t != 0 || co >= a.Cout) {
-      continue;
-    }
-    const float* p = a.part + (size_t)tile * a.n_chunks * a.tile_entries + e;
-    float s = 0.f;
-    for (int c = 0; c < a.n_chunks; ++c)
-      s += __ldcg(p + (size_t)c * a.tile_entries);
-    if (dw_entry)
-      a.dw[((size_t)tap * a.Cin + ci) * a.Cout + co] = s;
-    else
-      a.db[co] = s;
-  }
-}
-
-// -------------------------------------------------------------------- dx
-// kCi input channels per thread: 4 (one float4 of the transposed weights)
-// when Cin is a multiple of 4, else 1.
-template <int kCi>
-__device__ void dx_item(const Args& a, int item, float* slab) {
-  const int n = item / a.n_rblk;
-  const int r0 = (item % a.n_rblk) * a.rb;
-  const int rows = min(a.rb, a.H - r0);
-  const int K = a.K, Cout = a.Cout, Cin = a.Cin;
-  const int Wp = a.W + K - 1;
-  const int slab_elems = (rows + K - 1) * Wp * Cout;
-  for (int i = threadIdx.x; i < slab_elems; i += blockDim.x) {
+  const int n_w = taps * Cin * Cout;
+  for (int i = first; i < n_w; i += stride) {
     const int co = i % Cout;
-    const int t = (i / Cout) % Wp;
-    const int s = i / (Cout * Wp);
-    const int g = r0 - (K - 1) + s;  // dz row
-    const int c = t - (K - 1);       // dz column
-    float v = 0.f;
-    if (g >= 0 && g < a.Ho && c >= 0 && c < a.Wo)
-      v = dz_at(a, (((size_t)n * a.Ho + g) * a.Wo + c) * Cout + co);
-    slab[i] = v;
+    const int t = i / Cout;
+    const int ci = t % Cin;
+    const int tap = t / Cin;
+    wt[(tap * Cout + co) * Cin + ci] = __ldg(w + i);
   }
-  __syncthreads();
+}
 
-  const int lanes = a.cb;  // threads along Cin, kCi channels each
-  const int lane = threadIdx.x % lanes;
-  const int grp = threadIdx.x / lanes;
-  const int ngrp = blockDim.x / lanes;
-  if (grp >= ngrp) return;  // the threads past the last whole group idle
-  const int npix = rows * a.W;
-  float* dxb = a.dx + ((size_t)n * a.H + r0) * a.W * Cin;
-  for (int ci = lane * kCi; ci < Cin; ci += lanes * kCi) {
-    for (int p0 = grp * kPx; p0 < npix; p0 += ngrp * kPx) {
-      int base[kPx];
-      float acc[kPx][kCi];
+// ------------------------------------------------------------------- dx
+struct DxArgs {
+  const float* dz;  // (B, Ho, Wo, Cout)
+  const float* wt;  // (K, K, Cout, Cin)
+  float* dx;
+  int M;            // B*H*W rows, in (input pixel, image) order
+  Shapes s;
+};
+
+// Row n of a centre-out walk over n rows: the middle row first, then
+// outward, alternating sides.
+__device__ __forceinline__ int centre_out(int r, int n) {
+  return r % 2 == 0 ? (n - 1) / 2 - r / 2 : (n - 1) / 2 + 1 + r / 2;
+}
+
+// The first row of dx tile x.  Tiles that hold whole pixels (B % BM == 0)
+// or whole pixel rows (W*B % BM == 0) run centre-out, as the middle
+// pixels reach the most taps: the heaviest tiles start first and the
+// lightest finish the launch.  dx's bits do not depend on the order.
+template <int BM>
+__device__ __forceinline__ int dx_tile_start(int x, const Shapes& s) {
+  if (s.B % BM == 0) {
+    const int per = s.B / BM, p = x / per;
+    const int r = p / s.W, c = p - r * s.W;
+    return ((centre_out(r, s.H) * s.W + centre_out(c, s.W)) * s.B) +
+           (x - p * per) * BM;
+  }
+  if (s.W * s.B % BM == 0) {
+    const int per = s.W * s.B / BM, r = x / per;
+    return centre_out(r, s.H) * s.W * s.B + (x - r * per) * BM;
+  }
+  return x * BM;
+}
+
+// kVec: Cin % 4 == 0 and dx is 16-byte aligned, so wt moves in 16-byte
+// copies and dx in float4 stores.
+template <int BM, int BN, int TM, int TN, bool kVec>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN),
+                                  512 / ((BM / TM) * (BN / TN)))
+    dx_kernel(DxArgs a) {
+  using S = TileShape<BM, BN, TM, TN>;
+  constexpr int NT = S::NT;
+  constexpr int NG = NT / 8;       // row groups: 8 threads a row
+  constexpr int MS = (BM + NG - 1) / NG;  // rows a thread gathers
+  constexpr bool kRagged = MS * NG > BM;   // the last slot not in every thread
+  constexpr int VW = kVec ? 4 : 1;
+  static_assert(kBK == 16, "gather");
+  __shared__ TileSmem<BM, BN> sm;
+
+  const int t = threadIdx.x, kk = t & 7, grp = t >> 3;
+  const int B = a.s.B, W = a.s.W, K = a.s.K, Cin = a.s.Cin;
+  const int Cout = a.s.Cout, Ho = a.s.Ho, Wo = a.s.Wo;
+  const int m0 = dx_tile_start<BM>(blockIdx.x, a.s), n0 = blockIdx.y * BN;
+
+  // The taps that reach a pixel of the tile: the box from its first
+  // pixel's taps to its last's (all kw where it spans more than one row).
+  const int p0 = m0 / B, p1 = (min(m0 + BM, a.M) - 1) / B;
+  const int i0 = p0 / W, i1 = p1 / W;
+  const int kh0 = max(0, i0 - Ho + 1), kh1 = min(K - 1, i1);
+  const int kw0 = i0 == i1 ? max(0, p0 - i0 * W - Wo + 1) : 0;
+  const int kw1 = i0 == i1 ? min(K - 1, p1 - i1 * W) : K - 1;
+  const int nkw = kw1 - kw0 + 1;
+  const int ncols = (kh1 - kh0 + 1) * nkw * Cout;
+
+  // Rows: pixel (i, j) packed as i << 16 | j (-1 past M), and the dz
+  // offset of image n at (i, j), which tap (kh, kw) moves back by (kh * Wo
+  // + kw) * Cout.
+  int zoff[MS], zij[MS];
 #pragma unroll
-      for (int j = 0; j < kPx; ++j) {
-        const int p = min(p0 + j, npix - 1);  // tail lanes recompute the last
-        base[j] = ((p / a.W) * Wp + p % a.W) * Cout;
+  for (int s = 0; s < MS; ++s) {
+    const int m = m0 + grp + s * NG;
+    zoff[s] = 0;
+    zij[s] = -1;
+    if (m < a.M && !(kRagged && grp + s * NG >= BM)) {
+      const int p = m / B, n = m - p * B;
+      const int i = p / W, j = p - i * W;
+      zoff[s] = ((n * Ho + i) * Wo + j) * Cout;
+      zij[s] = i << 16 | j;
+    }
+  }
+  // Column lanes kk and kk + 8 of the current chunk: tap (kh, kw), channel
+  // co; past the last tap when kh > kh1.
+  int ckh[2], ckw[2], cco[2];
 #pragma unroll
-        for (int v = 0; v < kCi; ++v) acc[j][v] = 0.f;
-      }
-      for (int kh = 0; kh < K; ++kh) {
-        for (int kw = 0; kw < K; ++kw) {
-          const float* wt = a.wt + (size_t)(kh * K + kw) * Cout * Cin + ci;
-          const float* sb = slab + ((K - 1 - kh) * Wp + (K - 1 - kw)) * Cout;
-          for (int co = 0; co < Cout; ++co) {
-            float wv[kCi];
-            // plain loads, cached in L1: this SM has not read wt before
-            // the barrier after which it was written, so no line is stale
-            if constexpr (kCi == 4) {
-              const float4 q =
-                  *reinterpret_cast<const float4*>(wt + (size_t)co * Cin);
-              wv[0] = q.x;
-              wv[1] = q.y;
-              wv[2] = q.z;
-              wv[3] = q.w;
-            } else {
-              wv[0] = wt[(size_t)co * Cin];
-            }
+  for (int j = 0; j < 2; ++j) {
+    const int tap = (kk + 8 * j) / Cout;
+    cco[j] = kk + 8 * j - tap * Cout;
+    ckh[j] = kh0 + tap / nkw;
+    ckw[j] = kw0 + tap % nkw;
+  }
+
+  auto load = [&](int chunk, int st) {
 #pragma unroll
-            for (int j = 0; j < kPx; ++j) {
-              const float sv = sb[base[j] + co];
-#pragma unroll
-              for (int v = 0; v < kCi; ++v)
-                acc[j][v] = fmaf(sv, wv[v], acc[j][v]);
-            }
+    for (int j = 0; j < 2; ++j) {
+      if (chunk > 0) {
+        cco[j] += kBK;
+        while (cco[j] >= Cout) {
+          cco[j] -= Cout;
+          if (++ckw[j] > kw1) {
+            ckw[j] = kw0;
+            ++ckh[j];
           }
         }
       }
+      const bool kin = ckh[j] <= kh1;
+      const int back = (ckh[j] * Wo + ckw[j]) * Cout - cco[j];
 #pragma unroll
-      for (int j = 0; j < kPx; ++j) {
-        if (p0 + j >= npix) continue;
-        float* out = dxb + (size_t)(p0 + j) * Cin + ci;
-        if constexpr (kCi == 4)
-          *reinterpret_cast<float4*>(out) =
-              make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+      for (int s = 0; s < MS; ++s) {
+        if (kRagged && grp + s * NG >= BM) continue;
+        const int i = zij[s] >> 16, jj = zij[s] & 0xffff;
+        const bool ok = kin && zij[s] >= 0 &&
+                        (unsigned)(i - ckh[j]) < (unsigned)Ho &&
+                        (unsigned)(jj - ckw[j]) < (unsigned)Wo;
+        cp_async4(&sm.a[st][kk + 8 * j][grp + s * NG],
+                  ok ? a.dz + (zoff[s] - back) : a.dz, ok);
+      }
+      const int wrow = ((ckh[j] * K + ckw[j]) * Cout + cco[j]) * Cin + n0;
+      for (int c = VW * grp; c < BN; c += VW * NG) {
+        const bool ok = kin && n0 + c < Cin;
+        if (kVec)
+          cp_async16(&sm.b[st][kk + 8 * j][c], ok ? a.wt + wrow + c : a.wt,
+                     ok);
         else
-          *out = acc[j][0];
+          cp_async4(&sm.b[st][kk + 8 * j][c], ok ? a.wt + wrow + c : a.wt,
+                    ok);
+      }
+    }
+  };
+
+  float acc[TM][TN];
+  tile_loop<BM, BN, TM, TN>(sm, (ncols + kBK - 1) / kBK, load, acc);
+
+  const int tc = t % S::TC, tr = t / S::TC;
+  const int HW = a.s.H * W;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + S::row(i, tr);
+    if (m >= a.M) continue;
+    const int p = m / B, n = m - p * B;
+    float* out = a.dx + (n * HW + p) * Cin;
+#pragma unroll
+    for (int g = 0; g < S::GN; ++g) {
+      const int c = n0 + S::col(4 * g, tc);
+      if (kVec) {
+        if (c < Cin)
+          *reinterpret_cast<float4*>(out + c) =
+              make_float4(acc[i][4 * g], acc[i][4 * g + 1],
+                          acc[i][4 * g + 2], acc[i][4 * g + 3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (c + q < Cin) out[c + q] = acc[i][4 * g + q];
       }
     }
   }
 }
 
-// w (K*K, Cin, Cout) -> wt (K*K, Cout, Cin), by the whole grid.
-__device__ void transpose_w(const Args& a) {
-  const size_t total = (size_t)a.K * a.K * a.Cin * a.Cout;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int co = (int)(i % a.Cout);
-    const size_t t = i / a.Cout;
-    const int ci = (int)(t % a.Cin);
-    const size_t tap = t / a.Cin;
-    a.wt[(tap * a.Cout + co) * a.Cin + ci] = __ldg(a.w + i);
+// ------------------------------------------------------------------- dw
+struct DwArgs {
+  const float* x;   // (B, H, W, Cin)
+  const float* dz;  // (B, Ho, Wo, Cout)
+  float* part;      // (slices, Mw, Cout) partial sums
+  int Mw;           // K*K*Cin rows of dw, then db's row of ones
+  int Mp;           // B*Ho*Wo positions
+  int L;            // positions a slice
+  bool vecB;        // Cout % 4 == 0, dz and part 16-byte aligned
+  Shapes s;
+};
+
+// kVecA: Cin % 4 == 0 and x is 16-byte aligned, so X^T moves in 16-byte
+// copies of four channels of one tap.
+template <int BM, int BN, int TM, int TN, bool kVecA>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN),
+                                  512 / ((BM / TM) * (BN / TN)))
+    dw_kernel(DwArgs a) {
+  using S = TileShape<BM, BN, TM, TN>;
+  constexpr int NT = S::NT;
+  constexpr int NG = NT / 8;  // row groups: 8 threads a row (or quad)
+  constexpr int VA = kVecA ? 4 : 1;
+  constexpr int RS = (BM / VA + NG - 1) / NG;  // row slots a thread copies
+  __shared__ TileSmem<BM, BN> sm;
+
+  const int t = threadIdx.x, kk = t & 7, grp = t >> 3;
+  const int H = a.s.H, W = a.s.W, K = a.s.K, Cin = a.s.Cin;
+  const int Cout = a.s.Cout, Ho = a.s.Ho, Wo = a.s.Wo;
+  const int r0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int q0 = blockIdx.z * a.L;                  // the slice's first
+  const int len = min(a.L, a.Mp - q0);              // and its length
+  const int KKC = K * K * Cin;
+
+  // Row slot s: rows r .. r + VA - 1 of the tile; its offset in x from a
+  // position's pixel, -2 for db's row of ones, -1 past the rows.
+  int xoff[RS];
+#pragma unroll
+  for (int s = 0; s < RS; ++s) {
+    const int r = r0 + VA * (grp + s * NG);
+    xoff[s] = -1;
+    if (VA * (grp + s * NG) < BM && r < KKC) {
+      const int tap = r / Cin, ci = r - tap * Cin;
+      const int kh = tap / K, kw = tap - kh * K;
+      xoff[s] = (kh * W + kw) * Cin + ci;
+    } else if (r == KKC) {
+      xoff[s] = -2;
+    }
+  }
+  // Position lanes kk and kk + 8 of the current chunk: q within the slice,
+  // (n, oh, ow) of position q0 + q.
+  int lq[2], ln[2], loh[2], low[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    lq[j] = kk + 8 * j;
+    const int m = q0 + lq[j];
+    const int hw = Ho * Wo;
+    ln[j] = m / hw;
+    loh[j] = (m - ln[j] * hw) / Wo;
+    low[j] = m - ln[j] * hw - loh[j] * Wo;
+  }
+
+  auto load = [&](int chunk, int st) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (chunk > 0) {
+        lq[j] += kBK;
+        low[j] += kBK;
+        while (low[j] >= Wo) {
+          low[j] -= Wo;
+          if (++loh[j] == Ho) {
+            loh[j] = 0;
+            ++ln[j];
+          }
+        }
+      }
+      const bool kin = lq[j] < len;
+      const int pb = ((ln[j] * H + loh[j]) * W + low[j]) * Cin;
+#pragma unroll
+      for (int s = 0; s < RS; ++s) {
+        const int rr = VA * (grp + s * NG);
+        if (rr >= BM) continue;
+        float* dst = &sm.a[st][kk + 8 * j][rr];
+        const int o = xoff[s];
+        if (o == -2) {  // db's row (the quad's other rows lie past Mw)
+          const float one = kin ? 1.f : 0.f;
+          if (kVecA)
+            *reinterpret_cast<float4*>(dst) = make_float4(one, 0.f, 0.f, 0.f);
+          else
+            *dst = one;
+        } else {
+          const bool ok = kin && o >= 0;
+          if (kVecA)
+            cp_async16(dst, ok ? a.x + (pb + o) : a.x, ok);
+          else
+            cp_async4(dst, ok ? a.x + (pb + o) : a.x, ok);
+        }
+      }
+      const int zrow = (q0 + lq[j]) * Cout + n0;
+      if (a.vecB) {
+        for (int c = 4 * grp; c < BN; c += 4 * NG) {
+          const bool ok = kin && n0 + c < Cout;
+          cp_async16(&sm.b[st][kk + 8 * j][c], ok ? a.dz + zrow + c : a.dz,
+                     ok);
+        }
+      } else {
+        for (int c = grp; c < BN; c += NG) {
+          const bool ok = kin && n0 + c < Cout;
+          cp_async4(&sm.b[st][kk + 8 * j][c], ok ? a.dz + zrow + c : a.dz,
+                    ok);
+        }
+      }
+    }
+  };
+
+  float acc[TM][TN];
+  tile_loop<BM, BN, TM, TN>(sm, (len + kBK - 1) / kBK, load, acc);
+
+  const int tc = t % S::TC, tr = t / S::TC;
+  float* part = a.part + blockIdx.z * a.Mw * Cout;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = r0 + S::row(i, tr);
+    if (r >= a.Mw) continue;
+    float* pr = part + r * Cout;
+#pragma unroll
+    for (int g = 0; g < S::GN; ++g) {
+      const int c = n0 + S::col(4 * g, tc);
+      if (a.vecB) {
+        if (c < Cout)
+          *reinterpret_cast<float4*>(pr + c) =
+              make_float4(acc[i][4 * g], acc[i][4 * g + 1],
+                          acc[i][4 * g + 2], acc[i][4 * g + 3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (c + q < Cout) pr[c + q] = acc[i][4 * g + q];
+      }
+    }
   }
 }
 
-// Every block reaches both barriers: the item functions return to the loop,
-// nothing returns out of the kernel.
-template <int K, int kCi>
-__global__ void __launch_bounds__(kThreads) conv2d_bwd_kernel(Args a) {
-  extern __shared__ __align__(16) float smem[];
-  cg::grid_group grid = cg::this_grid();
-  transpose_w(a);
-  grid.sync();
-  const int items = a.n_dw + a.n_dx;
-  for (int it = blockIdx.x; it < items; it += gridDim.x) {
-    if (it < a.n_dw)
-      dw_item<K>(a, it, smem);
-    else
-      dx_item<kCi>(a, it - a.n_dw, smem);
-    __syncthreads();  // shared memory is reused by the next item
+// Entry e of (dw, db) flattened: lane y sums slices y, y + kSumLanes, ...
+// in order, then thread y == 0 adds the lanes' sums in lane order.
+__global__ void __launch_bounds__(32 * kSumLanes)
+    slice_sum_kernel(const float* __restrict__ part, float* __restrict__ dw,
+                  float* __restrict__ db, int n_out, int n_dw, int slices) {
+  __shared__ float red[kSumLanes][32];
+  const int e = blockIdx.x * 32 + threadIdx.x;
+  float s = 0.f;
+  if (e < n_out)
+    for (int sl = threadIdx.y; sl < slices; sl += kSumLanes)
+      s += __ldcg(part + (size_t)sl * n_out + e);
+  red[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y != 0 || e >= n_out) return;
+  s = red[0][threadIdx.x];
+#pragma unroll
+  for (int y = 1; y < kSumLanes; ++y) s += red[y][threadIdx.x];
+  if (e < n_dw)
+    dw[e] = s;
+  else
+    db[e - n_dw] = s;
+}
+
+// ----------------------------------------------------------------- plan
+struct Plan {
+  Shapes s;
+  int dw_tile, n_rt, n_ct;  // dw's tile, row tiles, column tiles
+  int Mw, Mp, L, slices;
+  long long dz_at, part_at, floats;  // scratch: wt, dz, partial sums
+};
+
+long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
+
+// The first tile of the menu (of its first `count`) that leaves neither
+// half its rows nor half its columns idle (a tile wider than 16), else
+// `fallback`: dw's, from the shapes alone.
+int fit_tile(long long M, int N, int count, int fallback) {
+  for (int i = 0; i < count; ++i) {
+    const Tile& t = kTiles[i];
+    if ((t.bn > 16 && 2 * N <= t.bn) || (t.bm > 32 && 2 * M <= t.bm))
+      continue;
+    return i;
   }
-  grid.sync();
-  finish_dw(a);
+  return fallback;
 }
 
-template <int kCi>
-const void* kernel_for(int K) {
-  switch (K) {
-    case 1: return (const void*)conv2d_bwd_kernel<1, kCi>;
-    case 2: return (const void*)conv2d_bwd_kernel<2, kCi>;
-    case 3: return (const void*)conv2d_bwd_kernel<3, kCi>;
-    case 4: return (const void*)conv2d_bwd_kernel<4, kCi>;
-    case 5: return (const void*)conv2d_bwd_kernel<5, kCi>;
-    case 6: return (const void*)conv2d_bwd_kernel<6, kCi>;
-    case 7: return (const void*)conv2d_bwd_kernel<7, kCi>;
-    case 8: return (const void*)conv2d_bwd_kernel<8, kCi>;
-    default: return nullptr;
+// dx's: the first tile that launches `want` blocks, skipping a tile wider
+// than 8 where half its columns or more would idle and the 8-wide tile
+// where N > 8; else the fit tile with the most blocks, else 32 x 32.  dx's
+// bits do not depend on it.
+int dx_tile_for(long long M, int N, int want) {
+#ifdef REPRO_CONV2D_BWD_DX_TILE  // a build of conv2d_tiles.py: one tile only
+  return REPRO_CONV2D_BWD_DX_TILE;
+#endif
+  int best = kCatchAll;
+  long long best_blocks = -1;
+  for (int i = 0; i < kTileCount; ++i) {
+    const Tile& t = kTiles[i];
+    if ((t.bn > 8 && 2 * N <= t.bn) || (t.bn <= 8 && N > t.bn)) continue;
+    const long long blocks = cdiv(M, t.bm) * cdiv(N, t.bn);
+    if (blocks >= want) return i;
+    if (blocks > best_blocks) {
+      best = i;
+      best_blocks = blocks;
+    }
+  }
+  return best;
+}
+
+// Shapes, dw's tiles and slices, and the scratch layout: all from the
+// shapes alone.  Returns 0 or a CUDA error.
+int make_plan(Plan& p, int B, int H, int W, int Cin, int K, int Cout,
+              bool has_y) {
+  if (B < 1 || Cin < 1 || Cout < 1 || K < 1 || K > H || K > W ||
+      H >= (1 << 15) || W >= (1 << 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int Ho = H - K + 1, Wo = W - K + 1;
+  // 32-bit offsets: x with 16 images to spare (dw's position lanes run up
+  // to 15 positions past the last), dz's virtual offsets of input pixels.
+  const long long x_span = (long long)(B + 16) * H * W * Cin;
+  const long long z_span =
+      ((long long)B * Ho + H) * Wo * Cout + (long long)W * Cout;
+  const long long Mw = (long long)K * K * Cin + 1;
+  if (x_span > INT_MAX || z_span > INT_MAX || Mw * Cout > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.s = Shapes{B, H, W, Cin, K, Cout, Ho, Wo};
+  p.Mw = (int)Mw;
+  p.Mp = B * Ho * Wo;
+  p.dw_tile = fit_tile(Mw, Cout, kDwTiles, kCatchAll);
+  const Tile& t = kTiles[p.dw_tile];
+  p.n_rt = (int)cdiv(Mw, t.bm);
+  p.n_ct = (int)cdiv(Cout, t.bn);
+  const long long per = cdiv(cdiv((long long)p.Mp * p.n_rt * p.n_ct,
+                                  kDwBlocks), kBK) * kBK;
+  p.L = (int)(per > kSliceMin ? per : kSliceMin);
+  p.slices = (int)cdiv(p.Mp, p.L);
+  const long long wt = (long long)K * K * Cin * Cout;
+  const long long dz = has_y ? (long long)B * Ho * Wo * Cout : 0;
+  p.dz_at = cdiv(wt, 4) * 4;  // each part 16-byte aligned
+  p.part_at = p.dz_at + cdiv(dz, 4) * 4;
+  p.floats = p.part_at + (long long)p.slices * Mw * Cout;
+  if (p.floats > INT_MAX || p.slices > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
+bool aligned16(const void* q) {
+  return reinterpret_cast<uintptr_t>(q) % 16 == 0;
+}
+
+template <int BM, int BN, int TM, int TN>
+cudaError_t launch_dx(const DxArgs& a, bool vec, cudaStream_t st) {
+  constexpr int NT = TileShape<BM, BN, TM, TN>::NT;
+  const dim3 grid((unsigned)cdiv(a.M, BM), (unsigned)cdiv(a.s.Cin, BN));
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  if (vec)
+    dx_kernel<BM, BN, TM, TN, true><<<grid, NT, 0, st>>>(a);
+  else
+    dx_kernel<BM, BN, TM, TN, false><<<grid, NT, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dx_plan(int tile, const DxArgs& a, bool vec,
+                           cudaStream_t st) {
+  switch (tile) {
+    case 0: return launch_dx<128, 64, 8, 8>(a, vec, st);
+    case 1: return launch_dx<32, 128, 4, 8>(a, vec, st);
+    case 2: return launch_dx<128, 32, 8, 4>(a, vec, st);
+    case 3: return launch_dx<32, 32, 4, 4>(a, vec, st);
+    default: return launch_dx<128, 8, 4, 4>(a, vec, st);
   }
 }
 
-// Fill in the launch plan; returns the grid size, or a negative CUDA error.
-int plan(Args& a, int B, int H, int W, int Cin, int K, int Cout, int rb,
-         const void** fn, size_t* smem) {
-  if (K < 1 || K > kMaxK) return -static_cast<int>(cudaErrorInvalidValue);
-  a.B = B; a.H = H; a.W = W; a.Cin = Cin; a.K = K; a.Cout = Cout;
-  a.Ho = H - K + 1;
-  a.Wo = W - K + 1;
-  a.rb = rb;
-  a.n_rblk = (H + rb - 1) / rb;
-  const int ci_per = Cin % 4 == 0 ? 4 : 1;  // dx channels per thread
-  a.cb = Cin / ci_per < 32 ? Cin / ci_per : 32;
-  *fn = ci_per == 4 ? kernel_for<4>(K) : kernel_for<1>(K);
-  *smem = (size_t)(rb + K - 1) * (W + K - 1) * Cout * sizeof(float);
-  if (*smem < kThreads * sizeof(float)) *smem = kThreads * sizeof(float);
-  if (*smem > (size_t)kDxSmem)
-    return -static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      *fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kDxSmem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, *fn,
-                                                        kThreads, *smem);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  if (per_sm < 1) return -static_cast<int>(cudaErrorInvalidConfiguration);
-  const int cap = per_sm * sms;
-  a.tci = 1;
-  while (a.tci * 2 <= kWarps && a.tci * 2 <= Cin) a.tci *= 2;
-  a.wsl = kWarps / a.tci;
-  a.n_ci_t = (Cin + a.tci - 1) / a.tci;
-  a.n_co_t = (Cout + 31) / 32;
-  const int tiles = a.n_ci_t * a.n_co_t;
-  const int rows = B * a.Ho;
-  // about two dw items per block, each chunk at least one row
-  int chunks = (2 * cap + tiles - 1) / tiles;
-  if (chunks > rows) chunks = rows;
-  a.rpc = (rows + chunks - 1) / chunks;
-  a.n_chunks = (rows + a.rpc - 1) / a.rpc;
-  a.tile_entries = (K * K * a.tci + 1) * 32;
-  a.n_dw = tiles * a.n_chunks;
-  a.n_dx = B * a.n_rblk;
-  const int items = a.n_dw + a.n_dx;
-  return items < cap ? items : cap;
+template <int BM, int BN, int TM, int TN>
+cudaError_t launch_dw(const DwArgs& a, const Plan& p, bool vec,
+                      cudaStream_t st) {
+  constexpr int NT = TileShape<BM, BN, TM, TN>::NT;
+  const dim3 grid(p.n_rt, p.n_ct, p.slices);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  if (vec)
+    dw_kernel<BM, BN, TM, TN, true><<<grid, NT, 0, st>>>(a);
+  else
+    dw_kernel<BM, BN, TM, TN, false><<<grid, NT, 0, st>>>(a);
+  return cudaGetLastError();
 }
 
-// The scratch holds the transposed weights first (rounded up to whole
-// float4s), then the dw items' partials.
-size_t wt_floats(const Args& a) {
-  return ((size_t)a.K * a.K * a.Cin * a.Cout + 3) / 4 * 4;
+cudaError_t launch_dw_plan(const DwArgs& a, const Plan& p, bool vec,
+                           cudaStream_t st) {
+  switch (p.dw_tile) {
+    case 0: return launch_dw<128, 64, 8, 8>(a, p, vec, st);
+    case 1: return launch_dw<32, 128, 4, 8>(a, p, vec, st);
+    case 2: return launch_dw<128, 32, 8, 4>(a, p, vec, st);
+    default: return launch_dw<32, 32, 4, 4>(a, p, vec, st);
+  }
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+int stride_grid(long long total) {
+  const long long blocks = cdiv(total, kPrepThreads);
+  return blocks < 1 ? 1 : (blocks > 2048 ? 2048 : (int)blocks);
 }
 
 }  // namespace
 
-// Floats of scratch the launch below needs for these shapes on the current
-// device, or a negative CUDA error.
+// Floats of scratch repro_conv2d_bwd needs for these shapes (has_y: y is
+// given, so dz gets a buffer of its own), or a negative CUDA error.  The
+// shapes alone decide it.
 extern "C" int repro_conv2d_bwd_scratch(int B, int H, int W, int Cin, int K,
-                                        int Cout, int rb) {
-  Args a;
-  const void* fn;
-  size_t smem;
-  const int grid = plan(a, B, H, W, Cin, K, Cout, rb, &fn, &smem);
-  if (grid < 0) return grid;
-  return (int)(wt_floats(a) +
-               (size_t)a.n_ci_t * a.n_co_t * a.n_chunks * a.tile_entries);
+                                        int Cout, int has_y) {
+  Plan p;
+  const int err = make_plan(p, B, H, W, Cin, K, Cout, has_y != 0);
+  return err ? -err : static_cast<int>(p.floats);
 }
 
-// y may be null (no tanh factor).  rb input rows per dx item; the caller
-// keeps (rb + K - 1) * (W + K - 1) * Cout floats within kDxSmem bytes and
-// passes `part` with repro_conv2d_bwd_scratch(...) floats.
+// y may be null (no tanh factor).  `scratch` holds
+// repro_conv2d_bwd_scratch(..., y != null) floats, 16-byte aligned.
 extern "C" int repro_conv2d_bwd(const float* x, const float* dy,
                                 const float* y, const float* w, float* dx,
-                                float* dw, float* db, float* part, int B,
+                                float* dw, float* db, float* scratch, int B,
                                 int H, int W, int Cin, int K, int Cout,
-                                int rb, void* stream) {
-  Args a;
-  const void* fn;
-  size_t smem;
-  const int grid = plan(a, B, H, W, Cin, K, Cout, rb, &fn, &smem);
-  if (grid < 0) return -grid;
-  if (!aligned16(part) || (Cin % 4 == 0 && !aligned16(dx)))
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  a.x = x; a.dy = dy; a.y = y; a.w = w; a.dx = dx; a.dw = dw; a.db = db;
-  a.wt = part;
-  a.part = part + wt_floats(a);
-  void* params[] = {&a};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      fn, dim3(grid), dim3(kThreads), params, smem,
-      static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
+                                void* stream) {
+  Plan p;
+  int err = make_plan(p, B, H, W, Cin, K, Cout, y != nullptr);
+  if (err) return err;
+  if (!aligned16(scratch)) return static_cast<int>(cudaErrorMisalignedAddress);
+  int want = 0;
+  cudaError_t e = min_blocks(&want);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* wt = scratch;
+  const float* dz = dy;
+  const int n_dz = B * p.s.Ho * p.s.Wo * Cout;
+  if (y != nullptr) dz = scratch + p.dz_at;
+  const bool vec_dz = aligned16(dy) && aligned16(y) && n_dz % 4 == 0;
+  const long long n_w = (long long)K * K * Cin * Cout;
+  const long long n_prep = y == nullptr ? 0 : vec_dz ? n_dz / 4 : n_dz;
+  prep_kernel<<<stride_grid(n_prep > n_w ? n_prep : n_w), kPrepThreads, 0,
+                st>>>(
+      dy, y, scratch + p.dz_at, n_dz, vec_dz, w, wt, K * K, Cin, Cout);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  // dx tiles' work follows the taps that reach their pixels (at conv4 the
+  // middle pixel's 36 against a mean of 10.7), so dx aims at four times
+  // the rule's blocks, for the card to even out.
+  const DxArgs dxa{dz, wt, dx, B * H * W, p.s};
+  const int dx_tile = dx_tile_for(dxa.M, Cin, 4 * want);
+  e = launch_dx_plan(dx_tile, dxa, Cin % 4 == 0 && aligned16(dx), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  float* part = scratch + p.part_at;
+  const DwArgs dwa{x, dz, part, p.Mw, p.Mp, p.L,
+                   Cout % 4 == 0 && aligned16(dz), p.s};
+  e = launch_dw_plan(dwa, p, Cin % 4 == 0 && aligned16(x), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  const int n_out = p.Mw * Cout;
+  slice_sum_kernel<<<(unsigned)cdiv(n_out, 32), dim3(32, kSumLanes), 0, st>>>(
+      part, dw, db, n_out, n_out - Cout, p.slices);
   return static_cast<int>(cudaGetLastError());
 }

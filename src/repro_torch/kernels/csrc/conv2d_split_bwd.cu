@@ -24,7 +24,8 @@
 //    where they fall outside dy (bounds checks here, no padding in device
 //    memory; up to kDxSmem bytes, opted in above the default 48 KB).  The
 //    rows per block are as many as fit in kDxSmem, fewer where that leaves
-//    less than kMinBlocks blocks, spread evenly (dx_plan).  Threads span
+//    less than min_blocks (two an SM, conv2d_common.cuh) blocks, spread
+//    evenly (dx_plan).  Threads span
 //    Cin; each keeps 4 input pixels x 4 input channels in registers (one
 //    channel where Cin is no multiple of 4) and reads the flipped taps, so
 //    that each float4 weight load feeds 16 FMAs.  Each dx element is
@@ -39,23 +40,25 @@
 //    registers, so each position costs K loads of x and one of dy for K*K
 //    FMAs.  Where a block has fewer channels than warps, the spare warps
 //    take interleaved rows of the batch block and are summed in shared
-//    memory in warp order.  Each block writes its batch block's partial
+//    memory in warp order; the Cin tiles are halved toward min_blocks
+//    blocks.  Each block writes its batch block's partial
 //    for every tap of its tile to the caller's scratch.  The second kernel
 //    sums each dw entry's partials in batch-block order.
-// Every order above is fixed by the shapes and the batch block alone, not
-// by the SM count, and nothing uses atomics: two runs give the same bits,
-// and the batch block groups the sum on the card as it does in the
-// reference.  One wrapper call is one counted launch and two device
-// kernels.
-//
-// The dx loop, the weight transpose and the dw row walk repeat those of
-// conv2d_bwd.cu with dy read through __ldg where that kernel recomputes
-// dz; ROADMAP 1b merges them into one header before redesigning them.
+// dx's order is fixed by the shapes alone.  dw's follows the shapes, the
+// batch block and, through the Cin tiles' warp split, min_blocks, which is
+// the SM count: on every 132-SM H100 it is what the former constant 264
+// gave.  Nothing uses atomics: two runs on one card give the same bits, and
+// the batch block groups the sum on the card as it does in the reference.
+// One wrapper call is one counted launch and two device kernels.  The
+// redesign of this pair (ROADMAP 11r) takes the SM count out of dw's order,
+// as conv2d_bwd.cu's GEMMs do.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <climits>
 #include <utility>
+
+#include "conv2d_common.cuh"
 
 namespace {
 
@@ -65,11 +68,6 @@ constexpr int kPx = 4;      // dx: input pixels per thread
 constexpr int kMaxK = 8;    // kernel sizes with a compiled dw path
 // Shared memory a dx block's dy slab may take (opted in per kernel).
 constexpr int kDxSmem = 100 * 1024;
-// Blocks a small batch is cut into at least, where it can be (two per SM
-// of an H100): dx shortens its row blocks and dw halves its Cin tiles
-// toward it.  A constant, so that the blocks, and with them the sums'
-// order, follow the shapes alone.
-constexpr int kMinBlocks = 264;
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
@@ -102,10 +100,11 @@ __global__ void __launch_bounds__(kThreads)
 
 // Fills a's shapes and picks the input rows per block: as many as keep the
 // slab of rows + K - 1 dy rows, each W + K - 1 wide, within kDxSmem, and
-// no more than leave B*H/kMinBlocks rows to a block; as few blocks per
-// image as that allows, rows spread evenly.  Returns the slab's bytes, or
-// a negative CUDA error.
-long long dx_plan(DxArgs& a, int B, int H, int W, int Cin, int K, int Cout) {
+// no more than leave B*H/min_blk rows to a block; as few blocks per image
+// as that allows, rows spread evenly.  Returns the slab's bytes, or a
+// negative CUDA error.
+long long dx_plan(DxArgs& a, int B, int H, int W, int Cin, int K, int Cout,
+                  int min_blk) {
   if (K < 1 || K > H || K > W || B < 1 || Cin < 1 || Cout < 1)
     return -static_cast<long long>(cudaErrorInvalidValue);
   a.H = H; a.W = W; a.Cin = Cin; a.K = K; a.Cout = Cout;
@@ -114,7 +113,7 @@ long long dx_plan(DxArgs& a, int B, int H, int W, int Cin, int K, int Cout) {
   const long long row = (long long)(W + K - 1) * Cout * 4;  // bytes
   const long long fit = kDxSmem / row - (K - 1);
   if (fit < 1) return -static_cast<long long>(cudaErrorInvalidValue);
-  const long long want = ((long long)B * H + kMinBlocks - 1) / kMinBlocks;
+  const long long want = ((long long)B * H + min_blk - 1) / min_blk;
   long long most = fit < want ? fit : want;
   if (most > H) most = H;
   a.n_rblk = (int)((H + most - 1) / most);
@@ -217,8 +216,9 @@ struct DwArgs {
   int tile_entries;   // partials per (batch block, tile)
 };
 
+// Cin tiles are halved toward min_blk blocks.
 int dw_plan(DwArgs& a, int B, int H, int W, int Cin, int K, int Cout,
-            int bb) {
+            int bb, int min_blk) {
   if (K < 1 || K > kMaxK || K > H || K > W || B < 1 || Cin < 1 ||
       Cout < 1 || bb < 1 || B % bb != 0)
     return -static_cast<int>(cudaErrorInvalidValue);
@@ -232,7 +232,7 @@ int dw_plan(DwArgs& a, int B, int H, int W, int Cin, int K, int Cout,
   while (a.tci * 2 <= kWarps && a.tci * 2 <= Cin) a.tci *= 2;
   while (a.tci > 1 &&
          (long long)a.n_bb * ((Cin + a.tci - 1) / a.tci) * a.n_co_t <
-             kMinBlocks)
+             min_blk)
     a.tci /= 2;
   a.wsl = kWarps / a.tci;
   a.n_ci_t = (Cin + a.tci - 1) / a.tci;
@@ -386,7 +386,10 @@ extern "C" int repro_conv2d_dx(const float* dy, const float* w, float* wt,
                                float* dx, int B, int H, int W, int Cin,
                                int K, int Cout, void* stream) {
   DxArgs a;
-  const long long smem = dx_plan(a, B, H, W, Cin, K, Cout);
+  int min_blk = 0;
+  cudaError_t err = min_blocks(&min_blk);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long smem = dx_plan(a, B, H, W, Cin, K, Cout, min_blk);
   if (smem < 0) return static_cast<int>(-smem);
   a.dy = dy; a.wt = wt; a.dx = dx;
   const int ci_per = Cin % 4 == 0 ? 4 : 1;
@@ -395,7 +398,7 @@ extern "C" int repro_conv2d_dx(const float* dy, const float* w, float* wt,
                                : (const void*)conv2d_dx_kernel<1>;
   if (!aligned16(wt) || (ci_per == 4 && !aligned16(dx)))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  cudaError_t err = cudaFuncSetAttribute(
+  err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kDxSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -412,11 +415,14 @@ extern "C" int repro_conv2d_dx(const float* dy, const float* w, float* wt,
 }
 
 // Floats of scratch repro_conv2d_dw needs for these shapes and bb images
-// per batch block, or a negative CUDA error.
+// per batch block on the current device, or a negative CUDA error.
 extern "C" int repro_conv2d_dw_scratch(int B, int H, int W, int Cin, int K,
                                        int Cout, int bb) {
   DwArgs a;
-  return dw_plan(a, B, H, W, Cin, K, Cout, bb);
+  int min_blk = 0;
+  const cudaError_t err = min_blocks(&min_blk);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return dw_plan(a, B, H, W, Cin, K, Cout, bb, min_blk);
 }
 
 // bb images per batch block (a divisor of B); `part` holds
@@ -425,13 +431,16 @@ extern "C" int repro_conv2d_dw(const float* x, const float* dy, float* dw,
                                float* part, int B, int H, int W, int Cin,
                                int K, int Cout, int bb, void* stream) {
   DwArgs a;
-  const int floats = dw_plan(a, B, H, W, Cin, K, Cout, bb);
+  int min_blk = 0;
+  cudaError_t err = min_blocks(&min_blk);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int floats = dw_plan(a, B, H, W, Cin, K, Cout, bb, min_blk);
   if (floats < 0) return -floats;
   a.x = x; a.dy = dy; a.dw = dw; a.part = part;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   void* params[] = {&a};
   const int blocks = a.n_bb * a.n_ci_t * a.n_co_t;
-  cudaError_t err = cudaLaunchKernel(dw_kernel_for(K), dim3(blocks),
+  err = cudaLaunchKernel(dw_kernel_for(K), dim3(blocks),
                                      dim3(kThreads), params, 0, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   dw_sum_kernel<<<stride_grid((size_t)K * K * Cin * Cout), kThreads, 0, s>>>(

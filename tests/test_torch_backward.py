@@ -115,18 +115,25 @@ def _xla_conv_vjp(x, w, b, dy, tanh):
 
 
 @pytest.mark.parametrize("tanh", [True, False])
-@pytest.mark.parametrize("B,H,Cin,Kk,Cout", [
-    (2, 29, 1, 4, 5),     # chaos-small conv0
-    (2, 13, 5, 5, 10),    # chaos-small conv2
-    (2, 11, 60, 6, 100),  # chaos-large conv4
+@pytest.mark.parametrize("B,H,W,Cin,Kk,Cout", [
+    pytest.param(2, 29, 29, 1, 4, 5, id="2-29-1-4-5"),  # chaos-small conv0
+    pytest.param(2, 13, 13, 5, 5, 10, id="2-13-5-5-10"),  # chaos-small conv2
+    pytest.param(2, 11, 11, 60, 6, 100,
+                 id="2-11-60-6-100"),  # chaos-large conv4
+    (3, 13, 17, 5, 4, 33),  # non-square, Cout no multiple of 4
+    (2, 17, 11, 8, 3, 7),   # H > W, Cout 7
+    (1, 12, 12, 3, 12, 5),  # K = H = W: one output pixel
+    (2, 20, 18, 4, 9, 8),   # K = 9
+    (7, 10, 9, 6, 1, 20),   # K = 1, ragged rows and channels
 ])
-def test_conv2d_bwd_fused_plain_matches_xla_vjp(tanh, B, H, Cin, Kk, Cout):
+def test_conv2d_bwd_fused_plain_matches_xla_vjp(tanh, B, H, W, Cin, Kk,
+                                                Cout):
     rng = _rng(B * H + Cout + tanh)
-    x = _act(rng, B, H, H, Cin)
+    x = _act(rng, B, H, W, Cin)
     w = _normal(rng, Kk, Kk, Cin, Cout, scale=(Kk * Kk * Cin) ** -0.5)
     b = _normal(rng, Cout, scale=0.1)
-    Ho = H - Kk + 1
-    dy = _normal(rng, B, Ho, Ho, Cout)
+    Ho, Wo = H - Kk + 1, W - Kk + 1
+    dy = _normal(rng, B, Ho, Wo, Cout)
     y, want = _xla_conv_vjp(x, w, b, dy, tanh)
     got = K.conv2d_bwd_fused(*_t(x, dy, w), _t(y)[0] if tanh else None)
     for g, r in zip(got, want):
@@ -144,20 +151,81 @@ def test_conv2d_dw_ref_matches_reference():
     _close(dw.numpy(), ref_ref.conv2d_dw_ref(x, dy))
 
 
-@pytest.mark.parametrize("H,K_,W,Cout", [
-    (29, 4, 29, 20), (26, 5, 26, 60), (11, 6, 11, 100), (41, 5, 41, 7)])
-def test_dx_row_block_fits_shared_memory_and_covers_rows(H, K_, W, Cout):
-    rb = K.dx_row_block(H, K_, W, Cout)
-    assert 1 <= rb <= H
-    assert (rb + K_ - 1) * (W + K_ - 1) * Cout * 4 <= K.BWD_SMEM_BYTES
-    nblocks = -(-H // rb)
-    assert H - (nblocks - 1) * rb > 0
-    assert nblocks == 1 or rb * nblocks - H < nblocks
+#: The CUDA branch's shapes (B, H, W, Cin, K, Cout, tanh): chip_smoke.py's
+#: phase-2 cases of the fused backward conv.
+BWD_SHAPES = [(256, 29, 29, 1, 4, 20, True), (256, 26, 26, 20, 5, 60, True),
+              (256, 11, 11, 60, 6, 100, True), (8, 29, 29, 1, 4, 20, True),
+              (8, 26, 26, 20, 5, 60, True), (8, 11, 11, 60, 6, 100, True),
+              (3, 29, 29, 1, 4, 5, True), (3, 41, 41, 20, 5, 7, False),
+              (4, 14, 14, 6, 3, 33, True), (3, 13, 17, 5, 4, 33, True),
+              (1, 26, 26, 20, 5, 60, True), (2, 9, 7, 6, 1, 10, True),
+              (2, 12, 12, 3, 12, 5, True), (2, 20, 18, 4, 9, 8, False),
+              (7, 19, 23, 8, 3, 20, True), (130, 11, 11, 60, 6, 100, True)]
 
 
-def test_dx_row_block_refuses_rows_too_wide_for_shared_memory():
-    with pytest.raises(ValueError, match="shared memory"):
-        K.dx_row_block(10, 5, 200, 64)
+def _meta(*shape):
+    return torch.empty(shape, dtype=torch.float32, device="meta")
+
+
+@pytest.mark.parametrize("B,H,W,Cin,Kk,Cout,tanh", BWD_SHAPES)
+def test_conv2d_bwd_fused_launches_its_kernel_for_any_shape(
+        B, H, W, Cin, Kk, Cout, tanh, monkeypatch):
+    """The CUDA branch, reached with meta tensors standing in for CUDA ones
+    (the device check and the library stubbed): one counted launch with the
+    C arguments, a scratch buffer of the size the library asks for, and
+    kernel sizes past the split kernels' ``BWD_MAX_K``."""
+    calls, asked = [], []
+
+    class Lib:
+        def repro_conv2d_bwd_scratch(self, *args):
+            asked.append(args)
+            return 1000 + B + Cout
+
+    monkeypatch.setattr(K.build, "check", lambda *a, **k: None)
+    monkeypatch.setattr(K.build, "launch", lambda *a: calls.append(a))
+    monkeypatch.setattr(K.build, "lib", Lib)
+    Ho, Wo = H - Kk + 1, W - Kk + 1
+    x, dy, w = _meta(B, H, W, Cin), _meta(B, Ho, Wo, Cout), \
+        _meta(Kk, Kk, Cin, Cout)
+    y = _meta(B, Ho, Wo, Cout) if tanh else None
+    before = K.conv2d_bwd_fused.launches
+    try:
+        dx, dw, db = K.conv2d_bwd_fused(x, dy, w, y)
+    finally:
+        launches = K.conv2d_bwd_fused.launches - before
+        K.conv2d_bwd_fused.launches = before
+    assert (dx.shape, dw.shape, db.shape) == (x.shape, w.shape, (Cout,))
+    assert launches == 1 and len(calls) == 1
+    assert asked == [(B, H, W, Cin, Kk, Cout, int(tanh))]
+    entry, device, *args = calls[0]
+    assert entry == "repro_conv2d_bwd" and device == x.device
+    assert args[:7] == [x, dy, y, w, dx, dw, db]
+    assert args[7].shape == (1000 + B + Cout,)
+    assert args[8:] == [B, H, W, Cin, Kk, Cout]
+    assert len(K.build.C_API[entry]) == len(args) + 1  # and the stream
+
+
+@pytest.mark.parametrize("x_shape,dy_shape,w_shape,match", [
+    ((2, 9, 9, 3), (2, 7, 7, 5), (3, 3, 4, 5), "does not match"),  # Cin
+    ((2, 9, 9, 3), (2, 7, 7, 5), (3, 2, 3, 5), "does not match"),  # K x K'
+    ((2, 9, 9, 3), (2, 1, 1, 5), (10, 10, 3, 5), "does not match"),  # K > H
+    ((0, 9, 9, 3), (0, 7, 7, 5), (3, 3, 3, 5), "does not match"),  # B = 0
+    ((8192, 512, 512, 1), (8192, 510, 510, 1), (3, 3, 1, 1),
+     "32-bit offsets"),                                  # 2^31 inputs
+    ((1, 40000, 8, 1), (1, 39998, 6, 1), (3, 3, 1, 1),
+     "32-bit offsets"),                                  # H >= 2^15
+    ((2, 9, 9, 3), (2, 7, 7, 5), (3, 3, 3, 5), "expected"),  # not on CUDA
+])
+def test_conv2d_bwd_fused_refuses_before_any_build(x_shape, dy_shape,
+                                                   w_shape, match,
+                                                   monkeypatch):
+    """What the kernel does not take raises before any build or launch;
+    meta tensors stand in for CUDA ones (and are no CUDA device)."""
+    monkeypatch.setattr(K.build, "launch", lambda *a: pytest.fail("launched"))
+    monkeypatch.setattr(K.build, "lib", lambda: pytest.fail("built"))
+    with pytest.raises(ValueError, match=match):
+        K.conv2d_bwd_fused(_meta(*x_shape), _meta(*dy_shape),
+                           _meta(*w_shape))
 
 
 # ------------------------------------- autograd against the entry points
