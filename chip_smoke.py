@@ -72,7 +72,8 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
 10. Flash backward parity: the backward kernel against its plain version
     on the card at qwen3-14b's training shape (B=2, T=2048, Hq 40 over Hkv
     8, D=128, bf16, causal) and at edge shapes (D=16, 32, 64 and 128, G=1,
-    T no tile multiple, f32, not causal).
+    2, 3, 5 and 8, T no tile multiple, f32, not causal; bf16 runs on the
+    tensor cores, f32 on the CUDA cores).
 11. LM training: qwen3-14b at full width cut to 4 layers (weights from
     ``torch.Generator("cuda").manual_seed(0)``, remat on, AdamW with f32
     moments) on ``TokenPipeline(vocab_size=151936, batch=2, seq_len=2048,
@@ -84,7 +85,8 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
     one torch.profiler trace of a step; then one chaos τ=1 superstep of 8.
 12. LM training times: the forward and backward kernels per call and per
     step at the training shape against the backward's plain version, SDPA's
-    backward (a yardstick the port never calls) and the backward's bound.
+    backward (a yardstick the port never calls) and the backward's bound
+    (the backward's TFLOP/s and share of the bound).
 13. Routes and card against CPU: qwen3-14b at full width cut to 2 layers,
     one batch of 1 x 256: the loss and each bucket's gradient norm of the
     kernel route on the card against the plain route on the card and
@@ -126,14 +128,18 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
     library yardsticks) and the bound, and the fused kernel against the
     split pair (``vs_split``) per step and at the reference benchmark's
     row (B=8, 26x26x20, K=5, Cout 60).
-19. Conv kernel bits and resources: a SHA-256 digest of the outputs of
+19. Kernel bits and resources: a SHA-256 digest of the outputs of
     ``conv2d_fwd``, ``conv2d_bwd_fused``, ``conv2d_dx`` and ``conv2d_dw``
-    at chaos-large's three conv layers at B=256, on inputs drawn from
+    at chaos-large's three conv layers at B=256, and of
+    ``flash_attention_bwd``'s dq, dk and dv at the training shape (bf16)
+    and one f32 case, on inputs drawn from
     ``torch.Generator("cuda").manual_seed(DIGEST_SEED)`` (the digest of the
     inputs printed too), each taken twice and equal; the registers, stack
     and local memory (spills) and static shared memory of every compiled
-    kernel instance of the library, the conv kernels' included, from
-    ``cuobjdump --dump-resource-usage``.
+    kernel instance of the library from ``cuobjdump
+    --dump-resource-usage``; the tensor-core MMA instructions of every
+    flash backward instance from ``cuobjdump -sass`` (above 0 in each bf16
+    instance, 0 in each f32 one; no bf16 instance spills).
 20. Result lines: ``nvidia-smi``'s name and power limit, one JSON object of
     the kernels, and last ``{"ok": true, "device": {...}}``.
 """
@@ -355,6 +361,12 @@ CONV_BWD_CASES = [(BATCH, 29, 29, 1, 4, 20, True),
 CONV_FWD_HUGE = (2, 1024, 1024, 1, 1, 1024)
 #: Phase 19: the seed of the digests' inputs.
 DIGEST_SEED = 19
+#: Phase 19: the flash backward's digest cases, (label, B, T, Hq, Hkv, D,
+#: dtype, causal): the training shape in bf16 (the tensor-core instances)
+#: and one f32 case (the CUDA-core instances, whose bits stay put).
+FLASH_DIGEST_CASES = [
+    ("qwen3-14b training", 2, 2048, 40, 8, 128, "bf16", True),
+    ("D=128, G=5, T=1000, f32", 1, 1000, 10, 2, 128, "f32", True)]
 #: Launches of one chaos-large eval batch (its 1x1 pool issues none).
 LARGE_PER_BATCH = {"conv2d_fwd": 3, "maxpool2d_fwd": 2, "fc_fwd": 2,
                    "softmax_xent_fwd": 1}
@@ -1407,7 +1419,12 @@ def check_flash_bwd_parity(torch, FA) -> float:
              False),
             ("D=64, G=1, T=100, f32", 2, 100, 3, 3, 64, f32, True),
             ("D=64, G=3, T=130, not causal", 1, 130, 6, 2, 64, bf, False),
-            ("D=128, G=5, T=70, f32", 1, 70, 10, 2, 128, f32, True)]:
+            ("D=128, G=5, T=70, f32", 1, 70, 10, 2, 128, f32, True),
+            ("D=32, G=2, T=190", 2, 190, 4, 2, 32, bf, True),
+            ("D=128, G=5, T=330", 1, 330, 10, 2, 128, bf, True),
+            ("D=128, G=8, T=1000", 1, 1000, 16, 2, 128, bf, True),
+            ("D=128, G=1, T=520, not causal", 2, 520, 4, 4, 128, bf,
+             False)]:
         args = flash_bwd_inputs(torch, FA, g, B, T, Hq, Hkv, D, dtype, causal)
         got = FA.flash_attention_bwd(*args, causal=causal)
         want = FA.flash_attention_bwd_plain(*args, causal=causal)
@@ -1678,7 +1695,8 @@ def lm_training_times(torch, F, FA, cfg):
           f"{t['fwd']:.6f} ms per call, {nf * t['fwd']:.6f} ms per step "
           f"({nf} calls)", flush=True)
     print(f"time flash_attention_bwd kernel {what}: {t['ms']:.6f} ms per "
-          f"call ({n_ops / (t['ms'] * 1e-3) / 1e12:.3f} TFLOP/s), "
+          f"call ({n_ops / (t['ms'] * 1e-3) / 1e12:.3f} TFLOP/s, "
+          f"{100 * row['bound_ms'] / row['ms']:.2f} % of the bound), "
           f"{row['ms']:.6f} ms per step ({nb} calls)", flush=True)
     print(f"time flash_attention_bwd plain version {what}: "
           f"{t['plain_ms']:.6f} ms per call, {row['plain_ms']:.6f} ms per "
@@ -2441,7 +2459,7 @@ def digest(torch, tensors) -> str:
     h = hashlib.sha256()
     torch.cuda.synchronize()
     for t in tensors:
-        h.update(t.contiguous().cpu().numpy().tobytes())
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
     return h.hexdigest()
 
 
@@ -2474,6 +2492,72 @@ def conv_bits(torch, K) -> None:
                   f"{what}: sha256 {first}", flush=True)
 
 
+def flash_bwd_bits(torch, FA) -> None:
+    """Digests of ``flash_attention_bwd``'s dq, dk and dv at
+    FLASH_DIGEST_CASES, on q, k, v and dout from a CUDA generator (out and
+    lse from the forward kernel on them); two runs of each equal."""
+    g = torch.Generator(device="cuda").manual_seed(DIGEST_SEED)
+    for label, B, T, Hq, Hkv, D, dt, causal in FLASH_DIGEST_CASES:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        args = flash_bwd_inputs(torch, FA, g, B, T, Hq, Hkv, D, dtype, causal)
+        first, second = (digest(torch, FA.flash_attention_bwd(
+            *args, causal=causal)) for _ in range(2))
+        if first != second:
+            raise AssertionError(f"flash_attention_bwd {label}: two runs "
+                                 f"differ")
+        print(f"digest flash_attention_bwd {label} q{(B, T, Hq, D)} "
+              f"kv{(B, T, Hkv, D)} {dt} causal={causal}: inputs q, k, v, "
+              f"out, lse, dout sha256 {digest(torch, args)}; dq, dk, dv "
+              f"sha256 {first}", flush=True)
+        del args
+    torch.cuda.empty_cache()
+
+
+def sass_mma_counts(sass: str) -> dict:
+    """Mangled kernel name -> the number of tensor-core MMA instructions
+    (HMMA of mma.sync, HGMMA of wgmma) in its SASS, from ``cuobjdump
+    -sass``'s output."""
+    parts = re.split(r"\n\s*Function : (\S+)\n", sass)
+    return {name: len(re.findall(r"\bHG?MMA\b", body))
+            for name, body in zip(parts[1::2], parts[2::2])}
+
+
+def flash_bwd_sass(build, resources: dict) -> None:
+    """Every flash backward instance's tensor-core instructions: above 0 in
+    each bf16 instance (``tc::``), 0 in each f32 one; no bf16 instance with
+    stack or local memory."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+
+    tools = Path(build.find_nvcc()).parent
+    sass = subprocess.run([str(tools / "cuobjdump"), "-sass",
+                           str(build.build())], capture_output=True,
+                          text=True, check=True).stdout
+    counts = sass_mma_counts(sass)
+    names = subprocess.run([str(tools / "cu++filt"), *counts],
+                           capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    seen = {"bf16": 0, "f32": 0}
+    bad = []
+    for name, n in sorted(zip(names, counts.values())):
+        if "flash_bwd_" not in name:
+            continue
+        dt = "f32" if "<float," in name else "bf16"
+        seen[dt] += 1
+        regs, stack, local, _ = resources[name]
+        print(f"sass {name}: {n} tensor-core MMA instructions, {regs} "
+              f"registers, {stack} bytes stack ({dt})", flush=True)
+        if (n == 0) if dt == "bf16" else (n > 0):
+            bad.append(f"{name}: {n} MMA instructions")
+        if dt == "bf16" and (stack or local):
+            bad.append(f"{name}: {stack} bytes stack, {local} local")
+    want = 2 * len(HEAD_DIMS)  # a dq and a dk/dv kernel per head dim
+    if seen != {"bf16": want, "f32": want}:
+        bad.append(f"flash backward instances {seen}, expected {want} of "
+                   f"each")
+    if bad:
+        raise AssertionError("flash backward SASS: " + "; ".join(bad))
+
+
 def resource_usage(dump: str) -> list:
     """(mangled name, registers, stack bytes, local bytes, static shared
     bytes) of each function in ``cuobjdump --dump-resource-usage``'s
@@ -2484,13 +2568,13 @@ def resource_usage(dump: str) -> list:
                 r"SHARED:(\d+) LOCAL:(\d+)", dump)]
 
 
-def kernel_resources(build) -> None:
+def kernel_resources(build) -> dict:
     """Registers, stack and local memory (spills: ``cudaFuncGetAttributes``'
     ``localSizeBytes`` is the stack) and static shared memory (with the 1
     KB that sm_90 reserves for every block) of every device kernel
     instance in the library, the conv kernels' included, as ``cuobjdump``
     (beside nvcc) reads them from the built library, names demangled by
-    ``cu++filt``."""
+    ``cu++filt``; returned by demangled name."""
     tools = Path(build.find_nvcc()).parent
     dump = subprocess.run([str(tools / "cuobjdump"), "--dump-resource-usage",
                            str(build.build())], capture_output=True,
@@ -2510,6 +2594,7 @@ def kernel_resources(build) -> None:
             spilled.append(name)
     print(f"resources: {len(rows)} kernel instances; with stack or local "
           f"memory (spills): {'; '.join(spilled) or 'none'}", flush=True)
+    return {name: row[1:] for name, row in zip(names, rows)}
 
 
 def main() -> int:
@@ -2699,9 +2784,10 @@ def main() -> int:
     split = check_split_backward(torch, kops, K, P, FC, batches_np[0])
     torch.cuda.empty_cache()
 
-    phase("19 conv kernel bits and resources")
+    phase("19 kernel bits and resources")
     conv_bits(torch, K)
-    kernel_resources(build)
+    flash_bwd_bits(torch, FA)
+    flash_bwd_sass(build, kernel_resources(build))
     torch.cuda.synchronize()
 
     phase("20 result")

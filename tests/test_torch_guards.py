@@ -163,6 +163,13 @@ def test_build_dir_is_keyed_by_the_sources(monkeypatch, tmp_path):
         "fc.cu", "fc_bwd.cu",
         "flash_attention.cu", "flash_attention_bwd.cu", "pool.cu",
         "pool_bwd.cu", "softmax_xent.cu", "wkv6.cu"]
+    # headers are not compiled alone, but an edit of one rebuilds too
+    assert sorted(p.name for p in csrc.glob("*.cuh")) == [
+        "conv2d_common.cuh", "flash_common.cuh", "mma_common.cuh"]
+    before = build.build_dir()
+    (csrc / "mma_common.cuh").write_text(
+        (csrc / "mma_common.cuh").read_text() + "\n")
+    assert build.build_dir() != before
 
 
 def test_c_api_names_every_entry_point_of_the_sources():
@@ -197,6 +204,33 @@ def test_chip_smoke_reads_each_kernels_resources_from_cuobjdump():
          "ILi32ELi128ELi4ELi8ELb1EEEvNS_4ArgsE", 93, 0, 0, 22016),
         ("_ZN46_GLOBAL__N__c7bafbab_13_conv2d_bwd_cu_fb2596fb17conv2d_bwd_"
          "kernelILi6ELi4EEEvNS_4ArgsE", 128, 64, 0, 1024)]
+
+
+#: ``cuobjdump -sass`` lines of two flash backward instances: a bf16 one
+#: with two HMMA instructions and an f32 one with none.
+SASS_SAMPLE = """\
+\tcode for sm_90a
+\t\tFunction : _ZN2tc23flash_bwd_dq_mma_kernelILi16EEEvNS_4ArgsE
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   HMMA.16816.F32.BF16 R24, R4, R8, R24 ;
+        /*0020*/                   HMMA.16816.F32.BF16 R28, R4, R10, R28 ;
+\t\t..........
+\t\tFunction : _ZN19flash_bwd_dq_kernelIfLi16EEEvNS_4ArgsE
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   FFMA R3, R4, R5, R3 ;
+        /*0010*/                   EXIT ;
+"""
+
+
+def test_chip_smoke_counts_tensor_core_instructions_per_kernel():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.sass_mma_counts(SASS_SAMPLE) == {
+        "_ZN2tc23flash_bwd_dq_mma_kernelILi16EEEvNS_4ArgsE": 2,
+        "_ZN19flash_bwd_dq_kernelIfLi16EEEvNS_4ArgsE": 0}
 
 
 @pytest.mark.parametrize("alone", [False, True])
