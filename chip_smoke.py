@@ -47,7 +47,14 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
    cache, Hq 40 over Hkv 8, D=128, bf16, q and the cache as the strided
    views the model passes) and at edge shapes (D=16, G=1, Tq no tile
    multiple, q_offset > 0, f32 inputs, f32 q over a bf16 cache, not
-   causal, LSE).
+   causal, LSE; for the bf16 tensor-core instances also D=32 and D=64
+   causal, Tq < 16, Tk no multiple of 64 with q_offset > 0, and scores
+   scaled ×8 at D=16 and ×2 at D=128 so that p spans many decades).  At
+   D=128 a scale of ×4 or more moves outputs beyond the limit whenever the
+   score sums are taken in another order than the plain version's, exact
+   sums included (tests/test_torch_flash_fwd_split.py); those two scales
+   are printed against the plain version and against the f64 attention,
+   not held.
 7. Serving: qwen3-14b at full width and full depth (``CONFIG``, weights
    from ``torch.Generator("cuda").manual_seed(0)``) through
    ``launch/serve.py``: the static batch ``serve(batch=4, prompt_len=1024,
@@ -134,12 +141,18 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
     ``flash_attention_bwd``'s dq, dk and dv at the training shape (bf16)
     and one f32 case, on inputs drawn from
     ``torch.Generator("cuda").manual_seed(DIGEST_SEED)`` (the digest of the
-    inputs printed too), each taken twice and equal; the registers, stack
+    inputs printed too), and of ``flash_attention_fwd``'s out and LSE at
+    the prefill shape (bf16, the strided cache views), one f32 case and
+    one f32 q over a bf16 cache, each taken twice and equal.  The bf16
+    backward digest's out and lse come from the forward kernel, so they
+    changed with the forward's bf16 redesign while the backward did not;
+    the f32 digests of both kernels stay put.  Then the registers, stack
     and local memory (spills) and static shared memory of every compiled
     kernel instance of the library from ``cuobjdump
     --dump-resource-usage``; the tensor-core MMA instructions of every
-    flash backward instance from ``cuobjdump -sass`` (above 0 in each bf16
-    instance, 0 in each f32 one; no bf16 instance spills).
+    flash forward and backward instance from ``cuobjdump -sass`` (above 0
+    in each bf16 instance, 0 in each f32 and f32-over-bf16 one; no bf16
+    instance spills; the expected number of instances of each).
 20. Result lines: ``nvidia-smi``'s name and power limit, one JSON object of
     the kernels, and last ``{"ok": true, "device": {...}}``.
 """
@@ -367,6 +380,18 @@ DIGEST_SEED = 19
 FLASH_DIGEST_CASES = [
     ("qwen3-14b training", 2, 2048, 40, 8, 128, "bf16", True),
     ("D=128, G=5, T=1000, f32", 1, 1000, 10, 2, 128, "f32", True)]
+#: Phase 19: the flash forward's digest cases, (label, A, Hq, Hkv, T, Tk,
+#: D, q_offset, q dtype, kv dtype): the prefill shape in bf16 (the
+#: tensor-core instances) and two on the CUDA cores, whose bits stay put.
+FLASH_FWD_DIGEST_CASES = [
+    ("qwen3-14b prefill", 4, 40, 8, 1024, 2048, 128, 0, "bf16", "bf16"),
+    ("f32, G=5, q_offset=13", 2, 10, 2, 70, 130, 64, 13, "f32", "f32"),
+    ("f32 q over a bf16 cache", 2, 4, 2, 12, 32, 16, 4, "f32", "bf16")]
+#: Phase 19: device kernel instances of the flash kernels, by (kernel,
+#: dtype): one per head dim, two (dq and dk/dv passes) for the backward.
+FLASH_INSTANCES = {("fwd", "bf16"): 4, ("fwd", "f32"): 4,
+                   ("fwd", "f32 q, bf16 kv"): 4, ("bwd", "bf16"): 8,
+                   ("bwd", "f32"): 8}
 #: Launches of one chaos-large eval batch (its 1x1 pool issues none).
 LARGE_PER_BATCH = {"conv2d_fwd": 3, "maxpool2d_fwd": 2, "fc_fwd": 2,
                    "softmax_xent_fwd": 1}
@@ -1002,21 +1027,37 @@ def check_flash_parity(torch, FA) -> float:
     g = torch.Generator(device="cuda").manual_seed(4321)
     bf, f32 = torch.bfloat16, torch.float32
     worst = 0.0
-    for (label, A, Hq, Hkv, T, Tk, D, off, causal, qdt, kvdt, lse) in [
+    for (label, A, Hq, Hkv, T, Tk, D, off, causal, qdt, kvdt, lse,
+         mult) in [
             ("qwen3-14b prefill", 4, 40, 8, 1024, 2048, 128, 0, True, bf, bf,
-             False),
+             False, 1),
             ("qwen3-14b prefill, LSE", 4, 40, 8, 1024, 2048, 128, 0, True, bf,
-             bf, True),
-            ("smoke heads, D=16", 3, 4, 2, 37, 64, 16, 0, True, bf, bf, True),
+             bf, True, 1),
+            ("smoke heads, D=16", 3, 4, 2, 37, 64, 16, 0, True, bf, bf, True,
+             1),
             ("G=1, Tq=100, q_offset=50", 2, 2, 2, 100, 300, 128, 50, True, bf,
-             bf, True),
+             bf, True, 1),
             ("f32, G=5, q_offset=13", 2, 10, 2, 70, 130, 64, 13, True, f32,
-             f32, True),
-            ("not causal, D=32", 1, 4, 2, 33, 57, 32, 0, False, bf, bf, True),
+             f32, True, 1),
+            ("not causal, D=32", 1, 4, 2, 33, 57, 32, 0, False, bf, bf, True,
+             1),
             ("f32 q over a bf16 cache", 2, 4, 2, 12, 32, 16, 4, True, f32, bf,
-             True)]:
+             True, 1),
+            ("D=32, G=4, T=200", 2, 8, 2, 200, 200, 32, 0, True, bf, bf, True,
+             1),
+            ("D=64, G=5, T=300", 1, 10, 2, 300, 300, 64, 0, True, bf, bf, True,
+             1),
+            ("Tq=5 < 16, q_offset=100", 2, 8, 2, 5, 105, 128, 100, True, bf,
+             bf, True, 1),
+            ("Tk=150, q_offset=37", 2, 10, 2, 113, 150, 128, 37, True, bf, bf,
+             True, 1),
+            ("scores x8, D=16, G=5, T=1000", 1, 10, 2, 1000, 1000, 16, 0,
+             True, bf, bf, True, 8),
+            ("scores x2, D=128, G=5, T=1000", 1, 10, 2, 1000, 1000, 128, 0,
+             True, bf, bf, True, 2)]:
         q, k, v = flash_inputs(torch, g, A, Hq, Hkv, T, Tk, D, qdt, kvdt)
-        kw = dict(causal=causal, q_offset=off, return_lse=lse)
+        kw = dict(causal=causal, q_offset=off, return_lse=lse,
+                  softmax_scale=mult / math.sqrt(D))
         got = FA.flash_attention_fwd(q, k, v, **kw)
         want = FA.flash_attention_fwd_plain(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -1030,8 +1071,11 @@ def check_flash_parity(torch, FA) -> float:
             raise AssertionError(f"flash {label}: non-finite output")
         diff = (o.float() - wo.float()).abs()
         if o.dtype == torch.bfloat16:
-            bad = (bf16_ulps(torch, o, wo) > 1) & (diff > FLASH_BF16_ABS)
-            tol = f"1 bf16 ulp or {FLASH_BF16_ABS} absolute"
+            ulps = bf16_ulps(torch, o, wo)
+            bad = (ulps > 1) & (diff > FLASH_BF16_ABS)
+            tol = (f"1 bf16 ulp or {FLASH_BF16_ABS} absolute; "
+                   f"{int((ulps > 1).sum())} beyond 1 ulp, max "
+                   f"{int(ulps.max())} ulps")
         else:
             atol, rtol = FLASH_F32_TOL
             bad = diff > atol + rtol * wo.abs()
@@ -1051,6 +1095,56 @@ def check_flash_parity(torch, FA) -> float:
               + (f", LSE max_abs_err={lse_err:.3e}" if lse else ""),
               flush=True)
     return worst
+
+
+def flash_f64(torch, q, k, v, scale, causal):
+    """The attention of (B, H, T, D) q, k and v in f64 on the card: exact
+    products, f64 sums and softmax; (out, lse)."""
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    qd = q.double().reshape(B, Hkv, Hq // Hkv, Tq, D)
+    s = torch.einsum("bhgtd,bhsd->bhgts", qd, k.double()) * scale
+    if causal:
+        pos = torch.arange(max(Tq, Tk), device=q.device)
+        s = s.masked_fill(pos[None, :Tk] > pos[:Tq, None], -math.inf)
+    lse = torch.logsumexp(s, dim=-1)
+    out = torch.einsum("bhgts,bhsd->bhgtd", torch.exp(s - lse[..., None]),
+                       v.double())
+    return out.reshape(B, Hq, Tq, D), lse
+
+
+def flash_scale_diagnostic(torch, FA) -> None:
+    """Scores ×8 and ×4 at D=128, outside phase 6's cases: the kernel
+    against its plain version, and each against the f64 attention, by
+    phase 6's measure (outputs beyond one bf16 ulp and FLASH_BF16_ABS of
+    the other, the LSE's max |diff|).  Printed, not held: a scaled score of
+    up to about 25 is off by up to an f32 ulp for any order of its sums,
+    and the plain version's own outputs fall outside that measure against
+    the exact ones (tests/test_torch_flash_fwd_split.py)."""
+    g = torch.Generator(device="cuda").manual_seed(4321)
+    for mult in (8, 4):
+        q, k, v = flash_inputs(torch, g, 1, 10, 2, 1000, 1000, 128,
+                               torch.bfloat16, torch.bfloat16)
+        kw = dict(causal=True, return_lse=True,
+                  softmax_scale=mult / math.sqrt(128))
+        got = FA.flash_attention_fwd(q, k, v, **kw)
+        want = FA.flash_attention_fwd_plain(q, k, v, **kw)
+        o64, l64 = flash_f64(torch, q, k, v, kw["softmax_scale"], True)
+        exact = (o64.to(torch.bfloat16), l64)
+
+        def beyond(a, b):
+            (o, l), (wo, wl) = a, b
+            diff = (o.float() - wo.float()).abs()
+            n = int(((bf16_ulps(torch, o, wo) > 1)
+                     & (diff > FLASH_BF16_ABS)).sum())
+            return f"{n} outputs beyond, LSE {(l - wl).abs().max().item():.3e}"
+
+        print(f"scores x{mult}, D=128, G=5, T=1000 (printed, not held): "
+              f"kernel vs plain version {beyond(got, want)}; kernel vs f64 "
+              f"{beyond(got, exact)}; plain version vs f64 "
+              f"{beyond(want, exact)}", flush=True)
+        del q, k, v, got, want, o64, l64, exact
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1335,7 +1429,9 @@ def serving_times(torch, F, FA, serving):
     what = (f"per prefill: {L} x q{tuple(q.shape)} over kv{tuple(k.shape)}, "
             f"CUDA events, median of 7 single calls x {L}")
     print(f"time flash_attention_fwd kernel {what}: {row['ms']:.6f} ms "
-          f"({L * n_ops / (row['ms'] * 1e-3) / 1e12:.3f} TFLOP/s)", flush=True)
+          f"({L * n_ops / (row['ms'] * 1e-3) / 1e12:.3f} TFLOP/s, "
+          f"{100 * row['bound_ms'] / row['ms']:.2f} % of the bound)",
+          flush=True)
     print(f"time flash_attention_fwd plain version {what}: "
           f"{row['plain_ms']:.6f} ms", flush=True)
     print(f"time SDPA (is_causal, enable_gqa; a yardstick the port never "
@@ -2513,6 +2609,28 @@ def flash_bwd_bits(torch, FA) -> None:
     torch.cuda.empty_cache()
 
 
+def flash_fwd_bits(torch, FA) -> None:
+    """Digests of ``flash_attention_fwd``'s out and LSE at
+    FLASH_FWD_DIGEST_CASES, on q and the cache from a CUDA generator, seen
+    as the strided views the model passes; two runs of each equal."""
+    g = torch.Generator(device="cuda").manual_seed(DIGEST_SEED)
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    for label, A, Hq, Hkv, T, Tk, D, off, qdt, kvdt in FLASH_FWD_DIGEST_CASES:
+        q, k, v = flash_inputs(torch, g, A, Hq, Hkv, T, Tk, D, dtypes[qdt],
+                               dtypes[kvdt])
+        first, second = (digest(torch, FA.flash_attention_fwd(
+            q, k, v, q_offset=off, return_lse=True)) for _ in range(2))
+        if first != second:
+            raise AssertionError(f"flash_attention_fwd {label}: two runs "
+                                 f"differ")
+        print(f"digest flash_attention_fwd {label} q{tuple(q.shape)} "
+              f"kv{tuple(k.shape)} {qdt}/{kvdt} q_offset={off} causal=True: "
+              f"inputs q, k, v sha256 {digest(torch, (q, k, v))}; out, lse "
+              f"sha256 {first}", flush=True)
+        del q, k, v
+    torch.cuda.empty_cache()
+
+
 def sass_mma_counts(sass: str) -> dict:
     """Mangled kernel name -> the number of tensor-core MMA instructions
     (HMMA of mma.sync, HGMMA of wgmma) in its SASS, from ``cuobjdump
@@ -2522,12 +2640,24 @@ def sass_mma_counts(sass: str) -> dict:
             for name, body in zip(parts[1::2], parts[2::2])}
 
 
-def flash_bwd_sass(build, resources: dict) -> None:
-    """Every flash backward instance's tensor-core instructions: above 0 in
-    each bf16 instance (``tc::``), 0 in each f32 one; no bf16 instance with
-    stack or local memory."""
-    from repro_torch.kernels.flash_attention import HEAD_DIMS
+def flash_instance(name: str):
+    """(kernel, dtype) of a demangled flash kernel instance, kernel "fwd"
+    or "bwd" and dtype "bf16", "f32" or "f32 q, bf16 kv"; None for any
+    other kernel."""
+    kernel = ("fwd" if "flash_fwd_" in name else
+              "bwd" if "flash_bwd_" in name else None)
+    if kernel is None:
+        return None
+    if "<float, __nv_bfloat16" in name:
+        return kernel, "f32 q, bf16 kv"
+    return kernel, "f32" if "<float" in name else "bf16"
 
+
+def flash_sass(build, resources: dict) -> None:
+    """Every flash forward and backward instance's tensor-core
+    instructions: above 0 in each bf16 instance (``tc::``), 0 in each one
+    with f32 q; no bf16 instance with stack or local memory; the instance
+    counts of FLASH_INSTANCES."""
     tools = Path(build.find_nvcc()).parent
     sass = subprocess.run([str(tools / "cuobjdump"), "-sass",
                            str(build.build())], capture_output=True,
@@ -2536,26 +2666,24 @@ def flash_bwd_sass(build, resources: dict) -> None:
     names = subprocess.run([str(tools / "cu++filt"), *counts],
                            capture_output=True, text=True,
                            check=True).stdout.splitlines()
-    seen = {"bf16": 0, "f32": 0}
+    seen = {key: 0 for key in FLASH_INSTANCES}
     bad = []
     for name, n in sorted(zip(names, counts.values())):
-        if "flash_bwd_" not in name:
+        key = flash_instance(name)
+        if key is None:
             continue
-        dt = "f32" if "<float," in name else "bf16"
-        seen[dt] += 1
+        seen[key] = seen.get(key, 0) + 1
         regs, stack, local, _ = resources[name]
         print(f"sass {name}: {n} tensor-core MMA instructions, {regs} "
-              f"registers, {stack} bytes stack ({dt})", flush=True)
-        if (n == 0) if dt == "bf16" else (n > 0):
+              f"registers, {stack} bytes stack ({key[1]})", flush=True)
+        if (n == 0) if key[1] == "bf16" else (n > 0):
             bad.append(f"{name}: {n} MMA instructions")
-        if dt == "bf16" and (stack or local):
+        if key[1] == "bf16" and (stack or local):
             bad.append(f"{name}: {stack} bytes stack, {local} local")
-    want = 2 * len(HEAD_DIMS)  # a dq and a dk/dv kernel per head dim
-    if seen != {"bf16": want, "f32": want}:
-        bad.append(f"flash backward instances {seen}, expected {want} of "
-                   f"each")
+    if seen != FLASH_INSTANCES:
+        bad.append(f"flash instances {seen}, expected {FLASH_INSTANCES}")
     if bad:
-        raise AssertionError("flash backward SASS: " + "; ".join(bad))
+        raise AssertionError("flash SASS: " + "; ".join(bad))
 
 
 def resource_usage(dump: str) -> list:
@@ -2745,6 +2873,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as FA
     phase("6 flash parity against the plain version")
     flash_err = check_flash_parity(torch, FA)
+    flash_scale_diagnostic(torch, FA)
     torch.cuda.empty_cache()
 
     phase(f"7 serving: {QWEN} at full width and full depth on cuda")
@@ -2786,8 +2915,9 @@ def main() -> int:
 
     phase("19 kernel bits and resources")
     conv_bits(torch, K)
+    flash_fwd_bits(torch, FA)
     flash_bwd_bits(torch, FA)
-    flash_bwd_sass(build, kernel_resources(build))
+    flash_sass(build, kernel_resources(build))
     torch.cuda.synchronize()
 
     phase("20 result")

@@ -1,6 +1,7 @@
-// Warp-level tensor-core helpers for sm_90a (flash_attention_bwd.cu): cp.async
-// staging with zero fill, ldmatrix fragment loads, the bf16 m16n8k16 MMA with
-// f32 accumulators, and the split of f32 values into bf16 high and low halves.
+// Warp-level tensor-core helpers for sm_90a (flash_attention.cu,
+// flash_attention_bwd.cu): cp.async staging with zero fill, ldmatrix fragment
+// loads, the bf16 m16n8k16 MMA with f32 accumulators, and the split of f32
+// values into bf16 high and low halves (split) or three pieces (split3).
 //
 // Fragment layouts of mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
 // (PTX ISA), with lane = 4·g + t (g = lane / 4, t = lane % 4):
@@ -11,7 +12,7 @@
 //   C, D (16 x 8 f32): c[0], c[1] (row g, cols 2t, 2t+1), c[2], c[3] (row
 //     g+8, cols 2t, 2t+1).
 // So the C fragments of two neighbouring n-tiles, packed to bf16, are the A
-// fragment of a 16-deep step over those 16 columns (split_a).
+// fragment of a 16-deep step over those 16 columns (split_a, split3_a).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -137,6 +138,34 @@ __device__ __forceinline__ void split_a(const float (&c0)[4],
   split(c0[2], c0[3], hi[1], lo[1]);
   split(c1[0], c1[1], hi[2], lo[2]);
   split(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// hi = bf16_rn(x), mid = bf16_rn(x − hi), lo = bf16_rn(x − hi − mid) of two
+// values, packed as pack() does.  Each remainder is exact in f32 and holds 8
+// fewer significant bits than the one before, so hi + mid + lo is x exactly
+// while lo stays a normal number (|x| above about 2^-100).
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = __fsub_rn(x0, hf.x), r1 = __fsub_rn(x1, hf.y);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  hi = bits(h);
+  mid = bits(m);
+  lo = pack(__fsub_rn(r0, mf.x), __fsub_rn(r1, mf.y));
+}
+
+// The A fragments (hi, mid and lo pieces) of a 16-deep step from the C
+// fragments of the two n-tiles c0 (cols 0-7 of the step) and c1 (cols 8-15).
+__device__ __forceinline__ void split3_a(const float (&c0)[4],
+                                         const float (&c1)[4],
+                                         uint32_t (&hi)[4], uint32_t (&mid)[4],
+                                         uint32_t (&lo)[4]) {
+  split3(c0[0], c0[1], hi[0], mid[0], lo[0]);
+  split3(c0[2], c0[3], hi[1], mid[1], lo[1]);
+  split3(c1[0], c1[1], hi[2], mid[2], lo[2]);
+  split3(c1[2], c1[3], hi[3], mid[3], lo[3]);
 }
 
 }  // namespace mma

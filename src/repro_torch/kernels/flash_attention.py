@@ -6,7 +6,9 @@ attention with an online softmax in f32, the causal frontier at the
 absolute position ``q_offset + row``, kv blocks past it skipped, and the
 optional per-row log-sum-exp.  On a CUDA tensor it launches
 ``csrc/flash_attention.cu`` once per call, all GQA groups folded into that
-launch (or raises); on a CPU tensor it runs ``flash_attention_fwd_plain``.
+launch (or raises): bf16 q over a bf16 cache on the tensor cores, with p
+carried into P·V as three bf16 pieces, f32 q on the CUDA cores.  On a CPU
+tensor it runs ``flash_attention_fwd_plain``.
 
 The kernel reads q, k and v through their strides, so the serving path
 hands it the KV cache in its ``(B, S, Hkv, D)`` layout as a transposed

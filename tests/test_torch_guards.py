@@ -181,6 +181,14 @@ def test_c_api_names_every_entry_point_of_the_sources():
     assert defined == set(build.C_API) | {"repro_cuda_error_string"}
 
 
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
 #: cuobjdump 12.8's ``--dump-resource-usage`` lines for two kernel
 #: instances of the library, after its per-object ``Common`` block.
 CUOBJDUMP_SAMPLE = """\
@@ -195,19 +203,16 @@ Resource usage:
 
 
 def test_chip_smoke_reads_each_kernels_resources_from_cuobjdump():
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    assert smoke.resource_usage(CUOBJDUMP_SAMPLE) == [
+    assert _chip_smoke().resource_usage(CUOBJDUMP_SAMPLE) == [
         ("_ZN41_GLOBAL__N__1a2c9ede_9_conv2d_cu_67c5b5f517conv2d_fwd_kernel"
          "ILi32ELi128ELi4ELi8ELb1EEEvNS_4ArgsE", 93, 0, 0, 22016),
         ("_ZN46_GLOBAL__N__c7bafbab_13_conv2d_bwd_cu_fb2596fb17conv2d_bwd_"
          "kernelILi6ELi4EEEvNS_4ArgsE", 128, 64, 0, 1024)]
 
 
-#: ``cuobjdump -sass`` lines of two flash backward instances: a bf16 one
-#: with two HMMA instructions and an f32 one with none.
+#: ``cuobjdump -sass`` lines of four flash instances: a bf16 backward one
+#: with two HMMA instructions, an f32 backward one with none, a bf16
+#: forward one with three and an f32 forward one with none.
 SASS_SAMPLE = """\
 \tcode for sm_90a
 \t\tFunction : _ZN2tc23flash_bwd_dq_mma_kernelILi16EEEvNS_4ArgsE
@@ -220,17 +225,56 @@ SASS_SAMPLE = """\
 \t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
         /*0000*/                   FFMA R3, R4, R5, R3 ;
         /*0010*/                   EXIT ;
+\t\t..........
+\t\tFunction : _ZN2tc20flash_fwd_mma_kernelILi128EEEvNS_4ArgsE
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDSM.16.M88.4 R8, [R2] ;
+        /*0010*/                   HMMA.16816.F32.BF16 R24, R4, R8, R24 ;
+        /*0020*/                   HMMA.16816.F32.BF16 R28, R4, R10, R28 ;
+        /*0030*/                   HMMA.16816.F32.BF16 R32, R12, R8, RZ ;
+\t\t..........
+\t\tFunction : _ZN16flash_fwd_kernelIffLi16EEEvNS_4ArgsE
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   FFMA R3, R4, R5, R3 ;
+        /*0010*/                   EXIT ;
 """
 
 
 def test_chip_smoke_counts_tensor_core_instructions_per_kernel():
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    assert smoke.sass_mma_counts(SASS_SAMPLE) == {
+    assert _chip_smoke().sass_mma_counts(SASS_SAMPLE) == {
         "_ZN2tc23flash_bwd_dq_mma_kernelILi16EEEvNS_4ArgsE": 2,
-        "_ZN19flash_bwd_dq_kernelIfLi16EEEvNS_4ArgsE": 0}
+        "_ZN19flash_bwd_dq_kernelIfLi16EEEvNS_4ArgsE": 0,
+        "_ZN2tc20flash_fwd_mma_kernelILi128EEEvNS_4ArgsE": 3,
+        "_ZN16flash_fwd_kernelIffLi16EEEvNS_4ArgsE": 0}
+
+
+_ARGS = "((anonymous namespace)::Args)"
+
+
+#: ``cu++filt`` names of kernel instances of the library and what phase 19
+#: makes of them: (kernel, dtype), or None for a kernel that is no flash
+#: kernel.
+FLASH_NAMES = [
+    ("tc::flash_fwd_mma_kernel<128>", ("fwd", "bf16")),
+    ("flash_fwd_kernel<float, float, 16>", ("fwd", "f32")),
+    ("flash_fwd_kernel<float, __nv_bfloat16, 64>", ("fwd", "f32 q, bf16 kv")),
+    ("tc::flash_bwd_dkdv_mma_kernel<32>", ("bwd", "bf16")),
+    ("flash_bwd_dq_kernel<float, 128>", ("bwd", "f32")),
+    ("conv2d_fwd_kernel<32, 128, 4, 8, true>", None)]
+
+
+@pytest.mark.parametrize("name,want", FLASH_NAMES,
+                         ids=[n.split("<")[0] + "-" + str(w and w[1])
+                              for n, w in FLASH_NAMES])
+def test_chip_smoke_sorts_the_flash_instances_by_dtype(name, want):
+    smoke = _chip_smoke()
+    assert smoke.flash_instance(
+        f"void (anonymous namespace)::{name}{_ARGS}") == want
+    # one instance of each per head dim, the backward's two passes each
+    n = len(FA.HEAD_DIMS)
+    assert smoke.FLASH_INSTANCES == {
+        ("fwd", "bf16"): n, ("fwd", "f32"): n, ("fwd", "f32 q, bf16 kv"): n,
+        ("bwd", "bf16"): 2 * n, ("bwd", "f32"): 2 * n}
 
 
 @pytest.mark.parametrize("alone", [False, True])
