@@ -125,12 +125,15 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
     kernel API on chaos-large's three conv layers at B=256, with x from the
     forward and dz from autograd of the batch's summed CE through the plain
     versions, counts from 0 around that run (exactly one launch of each per
-    layer); each held against its plain version and against
-    ``conv2d_bwd_fused`` with ``y=None``; the six conv shapes of the
-    Table-2 nets at B=8 and edge shapes (a batch_block that does not divide
-    B, batch_block=1, Cin=1 with K=6, Cin no multiple of 4, H < W and
-    H > W), every call one
-    launch and a second call bit-identical; times per chaos-large step
+    layer); each held against its plain version, and against
+    ``conv2d_bwd_fused`` with ``y=None`` (dx bit for bit, as both run its
+    dx GEMM; dw at DW_REL); the six conv shapes of the Table-2 nets at B=8
+    and edge shapes (a batch_block that does not divide B, batch_block=1,
+    Cin=1 with K=6, Cin no multiple of 4, H < W and H > W, K=9, K = H = W
+    = 12, a 200-wide row with Cout 64, B=130 in blocks of 5, chaos-large's
+    conv4 at B=256 in blocks of one image), each against its plain version
+    and dx bit for bit against the fused dx, every call one launch and a
+    second call bit-identical; times per chaos-large step
     against the plain versions, ``conv2d_input`` / ``conv2d_weight`` (the
     library yardsticks) and the bound, and the fused kernel against the
     split pair (``vs_split``) per step and at the reference benchmark's
@@ -143,13 +146,15 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
     ``torch.Generator("cuda").manual_seed(DIGEST_SEED)`` (the digest of the
     inputs printed too), and of ``flash_attention_fwd``'s out and LSE at
     the prefill shape (bf16, the strided cache views), one f32 case and
-    one f32 q over a bf16 cache, each taken twice and equal.  The bf16
+    one f32 q over a bf16 cache, each taken twice and equal; beside
+    ``conv2d_dw``'s, its plan's slices per batch block.  The bf16
     backward digest's out and lse come from the forward kernel, so they
     changed with the forward's bf16 redesign while the backward did not;
     the f32 digests of both kernels stay put.  Then the registers, stack
     and local memory (spills) and static shared memory of every compiled
     kernel instance of the library from ``cuobjdump
-    --dump-resource-usage``; the tensor-core MMA instructions of every
+    --dump-resource-usage``, failing on any instance of the conv sources
+    with stack; the tensor-core MMA instructions of every
     flash forward and backward instance from ``cuobjdump -sass`` (above 0
     in each bf16 instance, 0 in each f32 and f32-over-bf16 one; no bf16
     instance spills; the expected number of instances of each).
@@ -310,10 +315,14 @@ RWKV_CHUNKED_STATE_REL = (0.02, 0.25)
 #: NET_CONV_SHAPES); edge shapes (B, H, W, Cin, K, Cout) with their
 #: batch_block (a batch_block that does not divide B, one image per block,
 #: Cin = 1 with K = 6 and Cout no multiple of 32, Cin no multiple of 4 with
-#: two Cout tiles, H < W and H > W); and the reference benchmark's
-#: fused-against-split row (chaos-large's conv2).
-#: dx is held at TOL["conv2d_bwd_fused"], dw at DW_REL.
-SPLIT_SOURCE = "src/repro_torch/kernels/csrc/conv2d_split_bwd.cu"
+#: two Cout tiles, H < W and H > W; then shapes the pre-GEMM kernels
+#: refused: K = 9, K = H = W = 12, a 200-wide row with Cout 64 (a K-row dy
+#: slab of 261 KB); B=130 in blocks of 5; chaos-large's conv4 at B=256 in
+#: blocks of one image, 256 blocks of 36 positions); and the reference
+#: benchmark's fused-against-split row (chaos-large's conv2).
+#: dx is held at TOL["conv2d_bwd_fused"] and bit for bit against the fused
+#: dx, dw at DW_REL.
+SPLIT_SOURCE = "src/repro_torch/kernels/csrc/conv2d_bwd.cu"
 SPLIT_REPLACES = {"conv2d_dx": "src/repro/kernels/conv2d.py:281",
                   "conv2d_dw": "src/repro/kernels/conv2d.py:330"}
 NET_CONV_SHAPES = [(8, 29, 1, 4, 5), (8, 13, 5, 5, 10), (8, 29, 1, 4, 20),
@@ -321,7 +330,10 @@ NET_CONV_SHAPES = [(8, 29, 1, 4, 5), (8, 13, 5, 5, 10), (8, 29, 1, 4, 20),
                    (8, 11, 60, 6, 100)]
 SPLIT_EDGES = [((6, 13, 13, 5, 5, 10), 4), ((6, 13, 13, 5, 5, 10), 1),
                ((4, 13, 13, 1, 6, 45), 8), ((4, 14, 14, 6, 3, 33), 2),
-               ((3, 13, 17, 5, 4, 33), 2), ((2, 17, 11, 8, 3, 40), 8)]
+               ((3, 13, 17, 5, 4, 33), 2), ((2, 17, 11, 8, 3, 40), 8),
+               ((2, 20, 18, 4, 9, 8), 8), ((2, 12, 12, 3, 12, 5), 8),
+               ((2, 12, 200, 3, 5, 64), 8), ((130, 11, 11, 60, 6, 100), 8),
+               ((BATCH, 11, 11, 60, 6, 100), 1)]
 SPLIT_BENCH = (8, 26, 20, 5, 60)
 #: The forward conv's parity cases (B, H, W, Cin, K, Cout, activation,
 #: bias): chaos-large's three layers at B=256, chaos-small's conv0 at B=3,
@@ -2405,8 +2417,9 @@ def check_split_backward(torch, kops, K, P, FC, batch_np) -> dict:
                            K.conv2d_dw_plain(x, dz, w.shape), worst)
         fdx, fdw, _ = K.conv2d_bwd_fused(x, dz, w)
         calls["conv2d_bwd_fused"] += 1
-        f_dx = check_split(torch, "conv2d_dx", label + " vs fused", dx, fdx,
-                           None)
+        if not torch.equal(dx, fdx):
+            raise AssertionError(f"conv2d_dx {label}: not bit-equal to "
+                                 f"conv2d_bwd_fused's dx")
         f_dw = check_split(torch, "conv2d_dw", label + " vs fused", dw, fdw,
                            None)
         same = (torch.equal(dx_of(dz, w, x.shape), dx)
@@ -2414,8 +2427,9 @@ def check_split_backward(torch, kops, K, P, FC, batch_np) -> dict:
         if not same:
             raise AssertionError(f"split backward {label}: two calls differ")
         print(f"parity split {label}: dx {e_dx:.3e}, dw {e_dw:.3e} against "
-              f"the plain versions; dx {f_dx:.3e}, dw {f_dw:.3e} against "
-              f"conv2d_bwd_fused; second calls bit-identical", flush=True)
+              f"the plain versions; dx bit-equal to conv2d_bwd_fused's, dw "
+              f"{f_dw:.3e} against it; second calls bit-identical",
+              flush=True)
 
     g = torch.Generator(device="cuda").manual_seed(18)
     cases = [((B, H, H, Cin, Kk, Cout), 8)
@@ -2436,8 +2450,13 @@ def check_split_backward(torch, kops, K, P, FC, batch_np) -> dict:
         if not (torch.equal(dx_of(dz, w, x.shape, bb), dx)
                 and torch.equal(dw_of(x, dz, w.shape, bb), dw)):
             raise AssertionError(f"split backward {label}: two calls differ")
-        print(f"parity split {label}: dx {e_dx:.3e}, dw {e_dw:.3e}; second "
-              f"calls bit-identical", flush=True)
+        calls["conv2d_bwd_fused"] += 1
+        if not torch.equal(dx, K.conv2d_bwd_fused(x, dz, w)[0]):
+            raise AssertionError(f"conv2d_dx {label}: not bit-equal to "
+                                 f"conv2d_bwd_fused's dx")
+        print(f"parity split {label}: dx {e_dx:.3e}, dw {e_dw:.3e}; dx "
+              f"bit-equal to conv2d_bwd_fused's; second calls "
+              f"bit-identical", flush=True)
     torch.cuda.synchronize()
     counts = kops.launch_counts()
     want = {k: calls.get(k, 0) for k in counts}
@@ -2559,10 +2578,12 @@ def digest(torch, tensors) -> str:
     return h.hexdigest()
 
 
-def conv_bits(torch, K) -> None:
+def conv_bits(torch, K, build) -> None:
     """Digests of the four conv kernels' outputs at chaos-large's conv
     layers, B=256, on inputs from a CUDA generator (cuDNN's results vary
-    between runs, so no input comes from it); two runs of each equal."""
+    between runs, so no input comes from it); two runs of each equal.
+    Beside conv2d_dw's, its plan's slices per batch block: the partial sums
+    the library asks for over the batch blocks' count times dw's size."""
     g = torch.Generator(device="cuda").manual_seed(DIGEST_SEED)
     for i, H, Cin, Kk, Cout in chaos_large_convs():
         Ho = H - Kk + 1
@@ -2580,12 +2601,18 @@ def conv_bits(torch, K) -> None:
                 x, dy, w, y),
             "conv2d_dx": lambda: (K.conv2d_dx(dy, w, x.shape),),
             "conv2d_dw": lambda: (K.conv2d_dw(x, dy, w.shape),)}
+        bb = K._divisor_block(BATCH, 8)
+        n_part = build.lib().repro_conv2d_dw_scratch(BATCH, H, H, Cin, Kk,
+                                                     Cout, bb)
+        slices = n_part / (BATCH // bb * w.numel())
         for what, fn in outputs.items():
             first, second = digest(torch, fn()), digest(torch, fn())
             if first != second:
                 raise AssertionError(f"conv{i} {what}: two runs differ")
+            plan = (f" ({slices:g} slices per batch block of {bb})"
+                    if what == "conv2d_dw" else "")
             print(f"digest conv{i} x{(BATCH, H, H, Cin)} w{tuple(w.shape)} "
-                  f"{what}: sha256 {first}", flush=True)
+                  f"{what}: sha256 {first}{plan}", flush=True)
 
 
 def flash_bwd_bits(torch, FA) -> None:
@@ -2722,7 +2749,20 @@ def kernel_resources(build) -> dict:
             spilled.append(name)
     print(f"resources: {len(rows)} kernel instances; with stack or local "
           f"memory (spills): {'; '.join(spilled) or 'none'}", flush=True)
+    stacked = conv_with_stack(rows)
+    conv = [name for name, row in zip(names, rows) if row in stacked]
+    if conv:
+        raise AssertionError(f"conv kernel instances with stack: "
+                             f"{'; '.join(conv)}")
     return {name: row[1:] for name, row in zip(names, rows)}
+
+
+def conv_with_stack(rows: list) -> list:
+    """The rows of ``resource_usage`` that belong to an instance of the conv
+    sources (``conv2d.cu``, ``conv2d_bwd.cu``, whose file names the mangled
+    anonymous namespace carries) and have stack."""
+    return [row for row in rows
+            if re.search(r"_\d+_conv2d(_bwd)?_cu_", row[0]) and row[2]]
 
 
 def main() -> int:
@@ -2914,7 +2954,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("19 kernel bits and resources")
-    conv_bits(torch, K)
+    conv_bits(torch, K, build)
     flash_fwd_bits(torch, FA)
     flash_bwd_bits(torch, FA)
     flash_sass(build, kernel_resources(build))

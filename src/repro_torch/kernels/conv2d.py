@@ -14,8 +14,11 @@ a CPU tensor it runs ``conv2d_bwd_fused_plain``.
 ``conv2d_dx`` and ``conv2d_dw`` replace the reference's split backward
 (``repro.kernels.conv2d.conv2d_dx`` / ``conv2d_dw``), the un-fused baseline
 of ``conv2d_bwd_fused`` that no model calls: dx alone and dw alone, each
-from one launch of ``csrc/conv2d_split_bwd.cu``; on a CPU tensor each runs
-its plain version.
+from one launch of ``csrc/conv2d_bwd.cu``'s GEMMs (dx: the transposed
+weights, then the fused dx GEMM on dy, bit-equal to the fused dx; dw: the
+dw GEMM over slices inside the batch blocks, then their fixed-order sum),
+for every kernel size and row width; on a CPU tensor each runs its plain
+version.
 
 Launch accounting: every kernel wrapper of the port carries a plain integer
 ``launches`` that ``record_launch`` raises by one each time the wrapper
@@ -32,11 +35,6 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import conv2d_valid_ref
 
 _ACTIVE_TRACE = None
-#: Largest kernel size the split dw kernel is compiled for.
-BWD_MAX_K = 8
-#: Shared memory a dx block of the split backward may take: it opts in
-#: above the default (``kDxSmem`` in ``csrc/conv2d_split_bwd.cu``).
-BWD_SMEM_BYTES = 100 * 1024
 
 
 def record_launch(wrapper) -> None:
@@ -104,19 +102,6 @@ def conv2d_fwd(x, w, b=None, activation=None):
 conv2d_fwd.launches = 0
 
 
-def _slab_rows(what: str, K: int, W: int, Cout: int) -> int:
-    """Most input rows a split dx block may take: its dz slab of rows + K - 1
-    rows, each W + K - 1 wide with the column margins, fits in
-    ``BWD_SMEM_BYTES``."""
-    fit = BWD_SMEM_BYTES // ((W + K - 1) * Cout * 4) - (K - 1)
-    if fit < 1:
-        raise ValueError(
-            f"{what}: {K} dz rows of width {W + K - 1} x {Cout} "
-            f"channels do not fit in {BWD_SMEM_BYTES} bytes of shared "
-            f"memory")
-    return fit
-
-
 def dz_of(dy, y=None):
     """The upstream gradient through the fused tanh: dy * (1 - y*y)."""
     return dy if y is None else dy * (1.0 - y * y)
@@ -135,16 +120,22 @@ def conv2d_bwd_fused_plain(x, dy, w, y=None):
             dz.sum(dim=(0, 1, 2)).float())
 
 
-def _bwd_offsets_fit(B, H, W, Cin, K, Cout) -> bool:
-    """Whether ``csrc/conv2d_bwd.cu``'s 32-bit offsets reach every element
-    of these shapes: x with 16 images to spare, dz's offsets of input
-    pixels, and the scratch (the transposed weights, dz and at most 2^22 +
-    (K*K*Cin + 1)*Cout partial sums).  The kernel refuses the rest."""
+def _check_offsets(what, x_shape, w_shape) -> None:
+    """Raise unless ``csrc/conv2d_bwd.cu``'s 32-bit offsets reach every
+    element of these shapes: x with 16 images to spare, dz's offsets of
+    input pixels, and the fused call's scratch (the transposed weights, dz
+    and at most 2^22 + (K*K*Cin + 1)*Cout partial sums).  The kernels refuse
+    the rest."""
+    B, H, W, Cin = x_shape
+    K, _, _, Cout = w_shape
     Ho, Wo = H - K + 1, W - K + 1
     z_span = (B * Ho + H) * Wo * Cout + W * Cout
     scratch = z_span + 2 * (K * K * Cin + 1) * Cout + 2 ** 22 + 16
-    return (max(H, W) < 2 ** 15 and (B + 16) * H * W * Cin < 2 ** 31
-            and scratch < 2 ** 31)
+    if not (max(H, W) < 2 ** 15 and (B + 16) * H * W * Cin < 2 ** 31
+            and scratch < 2 ** 31):
+        raise ValueError(f"{what}: x {tuple(x_shape)} with w "
+                         f"{tuple(w_shape)} is too large for the CUDA "
+                         f"kernel's 32-bit offsets")
 
 
 def conv2d_bwd_fused(x, dy, w, y=None):
@@ -160,10 +151,7 @@ def conv2d_bwd_fused(x, dy, w, y=None):
     if K != K2 or Cin_w != Cin or not 0 < K <= min(H, W) or B == 0:
         raise ValueError(f"conv2d_bwd_fused: x {tuple(x.shape)} does not "
                          f"match w {tuple(w.shape)}")
-    if not _bwd_offsets_fit(B, H, W, Cin, K, Cout):
-        raise ValueError(f"conv2d_bwd_fused: x {tuple(x.shape)} with w "
-                         f"{tuple(w.shape)} is too large for the CUDA "
-                         f"kernel's 32-bit offsets")
+    _check_offsets("conv2d_bwd_fused", x.shape, w.shape)
     Ho, Wo = H - K + 1, W - K + 1
     build.check("x", x, torch.float32, x.shape, x.device)
     build.check("dy", dy, torch.float32, (B, Ho, Wo, Cout), x.device)
@@ -234,16 +222,18 @@ def conv2d_dx(dy, w, x_shape, *, batch_block: int = 8):
     """dx of ``conv2d_fwd`` without bias or activation: dy (B, Ho, Wo,
     Cout), w (K, K, Cin, Cout), both f32, x_shape (B, H, W, Cin) -> (B, H,
     W, Cin) f32.  ``batch_block`` is checked as the reference's is; dx of
-    one image does not depend on it."""
+    one image does not depend on it.  The CUDA kernel takes every shape
+    that ``conv2d_bwd_fused`` takes and gives its dx bit for bit; one call
+    is one counted launch of two device kernels."""
     x_shape = tuple(x_shape)
     _check_split("conv2d_dx", x_shape, w.shape, dy.shape, batch_block)
     if dy.device.type == "cpu":
         return conv2d_dx_plain(dy, w, x_shape)
+    _check_offsets("conv2d_dx", x_shape, w.shape)
     B, H, W, Cin = x_shape
     K, _, _, Cout = w.shape
     build.check("dy", dy, torch.float32, dy.shape, dy.device)
     build.check("w", w, torch.float32, w.shape, dy.device)
-    _slab_rows("conv2d_dx", K, W, Cout)  # the kernel picks its row blocks
     dx = torch.empty(x_shape, dtype=torch.float32, device=dy.device)
     wt = torch.empty((w.numel(),), dtype=torch.float32, device=dy.device)
     build.launch("repro_conv2d_dx", dy.device, dy, w, wt, dx, B, H, W, Cin,
@@ -274,25 +264,26 @@ def conv2d_dw(x, dy, w_shape, *, batch_block: int = 8):
     """dw of ``conv2d_fwd``: x (B, H, W, Cin), dy (B, Ho, Wo, Cout), both
     f32, w_shape (K, K, Cin, Cout) -> (K, K, Cin, Cout) f32, summed over
     batch blocks of ``_divisor_block(B, batch_block)`` images in block
-    order."""
+    order.  The CUDA kernel takes every shape that ``conv2d_bwd_fused``
+    takes whose partial sums, which the library sizes from the shapes and
+    the batch block alone, fit in 2^31 - 1 floats; one call is one counted
+    launch of two device kernels."""
     w_shape = tuple(w_shape)
     _check_split("conv2d_dw", x.shape, w_shape, dy.shape, batch_block)
     if x.device.type == "cpu":
         return conv2d_dw_plain(x, dy, w_shape, batch_block=batch_block)
+    _check_offsets("conv2d_dw", x.shape, w_shape)
     B, H, W, Cin = x.shape
     K, _, _, Cout = w_shape
-    if K > BWD_MAX_K:
-        raise ValueError(f"conv2d_dw: the CUDA kernel takes kernel sizes up "
-                         f"to {BWD_MAX_K}, got {K}")
     build.check("x", x, torch.float32, x.shape, x.device)
     build.check("dy", dy, torch.float32, dy.shape, x.device)
     bb = _divisor_block(B, batch_block)
-    with torch.cuda.device(x.device):
-        n_part = build.lib().repro_conv2d_dw_scratch(B, H, W, Cin, K, Cout,
-                                                     bb)
+    n_part = build.lib().repro_conv2d_dw_scratch(B, H, W, Cin, K, Cout, bb)
     if n_part < 0:
-        raise RuntimeError(f"repro_conv2d_dw_scratch failed: CUDA error "
-                           f"{-n_part}")
+        raise ValueError(f"conv2d_dw: x {tuple(x.shape)} with w "
+                         f"{tuple(w_shape)} in batch blocks of {bb} needs "
+                         f"more partial sums than the CUDA kernel takes "
+                         f"(more than 2^31 - 1 floats or 65535 slices)")
     dw = torch.empty(w_shape, dtype=torch.float32, device=x.device)
     part = torch.empty((n_part,), dtype=torch.float32, device=x.device)
     build.launch("repro_conv2d_dw", x.device, x, dy, dw, part, B, H, W, Cin,

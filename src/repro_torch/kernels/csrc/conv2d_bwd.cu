@@ -1,12 +1,17 @@
-// Fused backward of the valid, stride-1 convolution NHWC x HWIO -> NHWC:
-// dx, dw and db from one entry point, with the tanh derivative fused when
-// the forward output y is given (dz = dy * (1 - y^2), else dz = dy), fp32
-// on CUDA cores, as two register-tiled implicit GEMMs.
+// Backward of the valid, stride-1 convolution NHWC x HWIO -> NHWC, fp32 on
+// CUDA cores, as two register-tiled implicit GEMMs, from three entry
+// points: the fused backward (dx, dw and db, with the tanh derivative fused
+// when the forward output y is given: dz = dy * (1 - y^2), else dz = dy),
+// and the split pair, dx alone and dw alone (dz = dy).
 //
 // Replaces: src/repro/kernels/conv2d.py conv2d_bwd_fused (:197, body
 // _bwd_body :133-182), the Pallas TPU kernel that walks K-1-padded dz slabs
 // once, writes dx per slab and sums dw/db across the sequential batch grid
-// in VMEM scratch.
+// in VMEM scratch; and conv2d_dx (:281, body _conv_dx_kernel :262) and
+// conv2d_dw (:330, body _conv_dw_kernel :303), its un-fused baseline: dx as
+// the K-1-padded dy correlated with the flipped taps over a grid of batch
+// blocks, dw as each batch block's patch^T . dy added in block order into
+// one VMEM accumulator.
 //
 // Bound on the H100: operations.  dx and dw each cost the forward's
 // 2*B*Ho*Wo*Cout*K*K*Cin FLOP, and dz 4 FLOP an element; at chaos-large's
@@ -16,7 +21,8 @@
 // design is about feeding the FMA pipes.  TF32 would lose the
 // digits the parity limits hold, so the kernels stay in fp32 FMAs.
 //
-// Four device kernels on the caller's stream, one wrapper launch:
+// The fused backward issues four device kernels on the caller's stream,
+// one wrapper launch:
 //  1. prep: dz = dy * (1 - y*y), rounded as __fmul_rn(dy, __fsub_rn(1,
 //     __fmul_rn(y, y))) with no contraction, as the plain version rounds
 //     it, into scratch (skipped without y: dz is dy); and w transposed per
@@ -46,6 +52,14 @@
 //  4. Each dw and db entry is the sum of its slices' partials: lane y of 8
 //     sums slices y, y + 8, ... in order, then the 8 lane sums are added in
 //     lane order.
+// The split dx (repro_conv2d_dx) is steps 1 and 2 with dz = dy: prep only
+// transposes w, and dx is the fused dx bit for bit.  The split dw
+// (repro_conv2d_dw) is step 3 without db's row, over slices that stay
+// inside the reference's batch blocks of bb images: each block's bb*Ho*Wo
+// positions are cut into S slices of L positions by the same rule (the
+// fused call is one block of B images), and a fixed-order sum adds each
+// block's S partials in slice order, then the block sums from zero in
+// block order, as the reference's sequential grid adds them.
 // The GEMM loop is conv2d_common.cuh's (cp.async double buffering in
 // chunks of kBK, float4 register tiles), shared with the forward.
 //
@@ -63,18 +77,19 @@
 // B=8 32 x 32 at conv2 and conv4.  dw takes the first of the forward's four
 // tiles whose rows and columns are not half idle, else 32 x 32, from the
 // shapes alone: 32 x 32 at conv0, 128 x 64 at conv2 and conv4.  Every
-// kernel size runs: K enters only the gathers.  No instance needs more
-// than the default 48 KB of shared memory; the launch bounds keep each
-// within 128 registers.
+// kernel size and row width runs: K enters only the gathers.  No instance
+// needs more than the default 48 KB of shared memory; the launch bounds
+// keep each within 128 registers.
 //
 // Order of sums.  dx: each element is one thread's fmaf chain over (kh,
 // kw, co) in that order from 0, zero-filled taps adding exact zeros, so its
 // bits do not depend on the tile.  dw, db: one thread's fmaf chain over its
-// slice's positions in (n, oh, ow) order, then the slices in the fixed
-// order of step 4.  The slices and the dw tile come from the shapes alone;
-// nothing reads the SM count or occupancy into any sum, nothing uses
-// atomics or a cooperative launch, so two runs give the same bits on any
-// card.  Offsets are 32-bit: the wrapper refuses shapes that do not fit.
+// slice's positions in (n, oh, ow) order, then the slices (and, split, the
+// batch blocks) in the fixed orders above.  The slices and the dw tile come
+// from the shapes (and bb) alone; nothing reads the SM count or occupancy
+// into any sum, nothing uses atomics or a cooperative launch, so two runs
+// give the same bits on any card.  Offsets are 32-bit: the wrappers refuse
+// shapes that do not fit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -87,7 +102,7 @@ namespace {
 constexpr int kPrepThreads = 256;
 constexpr int kDwBlocks = 512;  // dw: blocks the slices aim at, in all
 constexpr int kSliceMin = 512;  // dw: least positions a slice
-constexpr int kSumLanes = 8;    // step 4: slice lanes an entry
+constexpr int kSumLanes = 8;    // the sums: slice or batch-block lanes
 
 struct Shapes {
   int B, H, W, Cin, K, Cout, Ho, Wo;
@@ -302,9 +317,10 @@ struct DwArgs {
   const float* x;   // (B, H, W, Cin)
   const float* dz;  // (B, Ho, Wo, Cout)
   float* part;      // (slices, Mw, Cout) partial sums
-  int Mw;           // K*K*Cin rows of dw, then db's row of ones
-  int Mp;           // B*Ho*Wo positions
-  int L;            // positions a slice
+  int Mw;           // K*K*Cin rows of dw, then db's row of ones if fused
+  int P;            // positions a batch block: bb*Ho*Wo (fused: B*Ho*Wo)
+  int S;            // slices a batch block
+  int L;            // positions a slice (the block's last may be shorter)
   bool vecB;        // Cout % 4 == 0, dz and part 16-byte aligned
   Shapes s;
 };
@@ -326,12 +342,15 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN),
   const int H = a.s.H, W = a.s.W, K = a.s.K, Cin = a.s.Cin;
   const int Cout = a.s.Cout, Ho = a.s.Ho, Wo = a.s.Wo;
   const int r0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int q0 = blockIdx.z * a.L;                  // the slice's first
-  const int len = min(a.L, a.Mp - q0);              // and its length
+  // Slice z: slice z % S of batch block z / S.
+  const int bz = blockIdx.z / a.S, sz = blockIdx.z - bz * a.S;
+  const int q0 = bz * a.P + sz * a.L;           // the slice's first position
+  const int len = min(a.L, a.P - sz * a.L);     // and its length
   const int KKC = K * K * Cin;
 
   // Row slot s: rows r .. r + VA - 1 of the tile; its offset in x from a
-  // position's pixel, -2 for db's row of ones, -1 past the rows.
+  // position's pixel, -2 for db's row of ones (fused only), -1 past the
+  // rows.
   int xoff[RS];
 #pragma unroll
   for (int s = 0; s < RS; ++s) {
@@ -341,7 +360,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN),
       const int tap = r / Cin, ci = r - tap * Cin;
       const int kh = tap / K, kw = tap - kh * K;
       xoff[s] = (kh * W + kw) * Cin + ci;
-    } else if (r == KKC) {
+    } else if (r == KKC && a.Mw > KKC) {
       xoff[s] = -2;
     }
   }
@@ -461,14 +480,33 @@ __global__ void __launch_bounds__(32 * kSumLanes)
     db[e - n_dw] = s;
 }
 
-// ----------------------------------------------------------------- plan
-struct Plan {
-  Shapes s;
-  int dw_tile, n_rt, n_ct;  // dw's tile, row tiles, column tiles
-  int Mw, Mp, L, slices;
-  long long dz_at, part_at, floats;  // scratch: wt, dz, partial sums
-};
+// Entry e of the split dw: each batch block's sum is its S slices'
+// partials added from zero in slice order, and dw[e] is the block sums
+// added from zero in block order.  Lane y takes block b0 + y of each run
+// of kSumLanes blocks, and thread y == 0 adds the run's sums in order.
+__global__ void __launch_bounds__(32 * kSumLanes)
+    block_sum_kernel(const float* __restrict__ part, float* __restrict__ dw,
+                     int n_dw, int blocks, int S) {
+  __shared__ float red[kSumLanes][32];
+  const int e = blockIdx.x * 32 + threadIdx.x;
+  float acc = 0.f;
+  for (int b0 = 0; b0 < blocks; b0 += kSumLanes) {
+    const int b = b0 + threadIdx.y;
+    float s = 0.f;
+    if (e < n_dw && b < blocks)
+      for (int sl = 0; sl < S; ++sl)
+        s += __ldcg(part + ((size_t)b * S + sl) * n_dw + e);
+    red[threadIdx.y][threadIdx.x] = s;
+    __syncthreads();
+    if (threadIdx.y == 0)
+      for (int y = 0; y < kSumLanes && b0 + y < blocks; ++y)
+        acc += red[y][threadIdx.x];
+    __syncthreads();
+  }
+  if (threadIdx.y == 0 && e < n_dw) dw[e] = acc;
+}
 
+// ----------------------------------------------------------------- plan
 long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
 // The first tile of the menu (of its first `count`) that leaves neither
@@ -507,40 +545,80 @@ int dx_tile_for(long long M, int N, int want) {
   return best;
 }
 
-// Shapes, dw's tiles and slices, and the scratch layout: all from the
-// shapes alone.  Returns 0 or a CUDA error.
-int make_plan(Plan& p, int B, int H, int W, int Cin, int K, int Cout,
-              bool has_y) {
+// The shapes of one valid conv whose 32-bit offsets reach every element:
+// x with 16 images to spare (dw's position lanes run up to 15 positions
+// past the last), dz's virtual offsets of input pixels, and (K*K*Cin + 1)
+// * Cout.  Returns 0 or a CUDA error.
+int make_shapes(Shapes& s, int B, int H, int W, int Cin, int K, int Cout) {
   if (B < 1 || Cin < 1 || Cout < 1 || K < 1 || K > H || K > W ||
       H >= (1 << 15) || W >= (1 << 15))
     return static_cast<int>(cudaErrorInvalidValue);
   const int Ho = H - K + 1, Wo = W - K + 1;
-  // 32-bit offsets: x with 16 images to spare (dw's position lanes run up
-  // to 15 positions past the last), dz's virtual offsets of input pixels.
   const long long x_span = (long long)(B + 16) * H * W * Cin;
   const long long z_span =
       ((long long)B * Ho + H) * Wo * Cout + (long long)W * Cout;
-  const long long Mw = (long long)K * K * Cin + 1;
-  if (x_span > INT_MAX || z_span > INT_MAX || Mw * Cout > INT_MAX)
+  if (x_span > INT_MAX || z_span > INT_MAX ||
+      ((long long)K * K * Cin + 1) * Cout > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  p.s = Shapes{B, H, W, Cin, K, Cout, Ho, Wo};
-  p.Mw = (int)Mw;
-  p.Mp = B * Ho * Wo;
-  p.dw_tile = fit_tile(Mw, Cout, kDwTiles, kCatchAll);
-  const Tile& t = kTiles[p.dw_tile];
-  p.n_rt = (int)cdiv(Mw, t.bm);
-  p.n_ct = (int)cdiv(Cout, t.bn);
-  const long long per = cdiv(cdiv((long long)p.Mp * p.n_rt * p.n_ct,
-                                  kDwBlocks), kBK) * kBK;
-  p.L = (int)(per > kSliceMin ? per : kSliceMin);
-  p.slices = (int)cdiv(p.Mp, p.L);
+  s = Shapes{B, H, W, Cin, K, Cout, Ho, Wo};
+  return 0;
+}
+
+// dw's GEMM: its tile, and its slices over batch blocks of bb images.
+struct DwPlan {
+  int tile, n_rt, n_ct;  // dw's tile, row tiles, column tiles
+  int Mw, P, S, L;       // rows; positions, slices a batch block; slice
+  int slices;            // in all: B / bb * S
+  long long floats;      // partial sums: slices * Mw * Cout
+};
+
+// Mw rows (K*K*Cin, + 1 for db's row in the fused call) over batch blocks
+// of bb images (the fused call: one block of B).  Each block's P = bb*Ho*Wo
+// positions are cut into S slices of L, the last shorter; L is a multiple
+// of kBK (or the whole block) from the shapes and bb alone, about
+// kDwBlocks blocks in all and at least kSliceMin positions.  Returns 0 or
+// a CUDA error.
+int dw_plan(DwPlan& d, const Shapes& s, int Mw, int bb) {
+  if (bb < 1 || s.B % bb != 0) return static_cast<int>(cudaErrorInvalidValue);
+  d.Mw = Mw;
+  d.tile = fit_tile(Mw, s.Cout, kDwTiles, kCatchAll);
+  const Tile& t = kTiles[d.tile];
+  d.n_rt = (int)cdiv(Mw, t.bm);
+  d.n_ct = (int)cdiv(s.Cout, t.bn);
+  const long long blocks = s.B / bb;
+  d.P = bb * s.Ho * s.Wo;
+  const long long per = cdiv(cdiv((long long)s.B * s.Ho * s.Wo * d.n_rt *
+                                  d.n_ct, kDwBlocks), kBK) * kBK;
+  const long long L = per > kSliceMin ? per : kSliceMin;
+  d.S = (int)cdiv(d.P, L);
+  d.L = (int)(L < d.P ? L : d.P);  // one slice takes the whole block
+  const long long slices = blocks * d.S;
+  d.floats = slices * Mw * s.Cout;
+  if (slices > 65535 || d.floats > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  d.slices = (int)slices;
+  return 0;
+}
+
+// The fused call's plan: shapes, dw's, and the scratch layout, from the
+// shapes alone.
+struct Plan {
+  Shapes s;
+  DwPlan dw;
+  long long dz_at, part_at, floats;  // scratch: wt, dz, partial sums
+};
+
+int make_plan(Plan& p, int B, int H, int W, int Cin, int K, int Cout,
+              bool has_y) {
+  int err = make_shapes(p.s, B, H, W, Cin, K, Cout);
+  if (!err) err = dw_plan(p.dw, p.s, K * K * Cin + 1, B);
+  if (err) return err;
   const long long wt = (long long)K * K * Cin * Cout;
-  const long long dz = has_y ? (long long)B * Ho * Wo * Cout : 0;
+  const long long dz = has_y ? (long long)B * p.s.Ho * p.s.Wo * Cout : 0;
   p.dz_at = cdiv(wt, 4) * 4;  // each part 16-byte aligned
   p.part_at = p.dz_at + cdiv(dz, 4) * 4;
-  p.floats = p.part_at + (long long)p.slices * Mw * Cout;
-  if (p.floats > INT_MAX || p.slices > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+  p.floats = p.part_at + p.dw.floats;
+  if (p.floats > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }
 
@@ -571,11 +649,25 @@ cudaError_t launch_dx_plan(int tile, const DxArgs& a, bool vec,
   }
 }
 
+// dx = the dz correlation with wt: dx tiles' work follows the taps that
+// reach their pixels (at conv4 the middle pixel's 36 against a mean of
+// 10.7), so dx aims at four times the rule's blocks, for the card to even
+// out.  The tile does not enter dx's bits.
+cudaError_t launch_dx_gemm(const float* dz, const float* wt, float* dx,
+                           const Shapes& s, cudaStream_t st) {
+  int want = 0;
+  const cudaError_t e = min_blocks(&want);
+  if (e != cudaSuccess) return e;
+  const DxArgs a{dz, wt, dx, s.B * s.H * s.W, s};
+  return launch_dx_plan(dx_tile_for(a.M, s.Cin, 4 * want), a,
+                        s.Cin % 4 == 0 && aligned16(dx), st);
+}
+
 template <int BM, int BN, int TM, int TN>
-cudaError_t launch_dw(const DwArgs& a, const Plan& p, bool vec,
+cudaError_t launch_dw(const DwArgs& a, const DwPlan& d, bool vec,
                       cudaStream_t st) {
   constexpr int NT = TileShape<BM, BN, TM, TN>::NT;
-  const dim3 grid(p.n_rt, p.n_ct, p.slices);
+  const dim3 grid(d.n_rt, d.n_ct, d.slices);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   if (vec)
     dw_kernel<BM, BN, TM, TN, true><<<grid, NT, 0, st>>>(a);
@@ -584,13 +676,18 @@ cudaError_t launch_dw(const DwArgs& a, const Plan& p, bool vec,
   return cudaGetLastError();
 }
 
-cudaError_t launch_dw_plan(const DwArgs& a, const Plan& p, bool vec,
+// dw's partial sums over d's slices into `part` (16-byte aligned).
+cudaError_t launch_dw_gemm(const float* x, const float* dz, float* part,
+                           const Shapes& s, const DwPlan& d,
                            cudaStream_t st) {
-  switch (p.dw_tile) {
-    case 0: return launch_dw<128, 64, 8, 8>(a, p, vec, st);
-    case 1: return launch_dw<32, 128, 4, 8>(a, p, vec, st);
-    case 2: return launch_dw<128, 32, 8, 4>(a, p, vec, st);
-    default: return launch_dw<32, 32, 4, 4>(a, p, vec, st);
+  const DwArgs a{x,   dz,  part, d.Mw, d.P,
+                 d.S, d.L, s.Cout % 4 == 0 && aligned16(dz), s};
+  const bool vec = s.Cin % 4 == 0 && aligned16(x);
+  switch (d.tile) {
+    case 0: return launch_dw<128, 64, 8, 8>(a, d, vec, st);
+    case 1: return launch_dw<32, 128, 4, 8>(a, d, vec, st);
+    case 2: return launch_dw<128, 32, 8, 4>(a, d, vec, st);
+    default: return launch_dw<32, 32, 4, 4>(a, d, vec, st);
   }
 }
 
@@ -619,12 +716,9 @@ extern "C" int repro_conv2d_bwd(const float* x, const float* dy,
                                 int H, int W, int Cin, int K, int Cout,
                                 void* stream) {
   Plan p;
-  int err = make_plan(p, B, H, W, Cin, K, Cout, y != nullptr);
+  const int err = make_plan(p, B, H, W, Cin, K, Cout, y != nullptr);
   if (err) return err;
   if (!aligned16(scratch)) return static_cast<int>(cudaErrorMisalignedAddress);
-  int want = 0;
-  cudaError_t e = min_blocks(&want);
-  if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* wt = scratch;
   const float* dz = dy;
@@ -636,25 +730,63 @@ extern "C" int repro_conv2d_bwd(const float* x, const float* dy,
   prep_kernel<<<stride_grid(n_prep > n_w ? n_prep : n_w), kPrepThreads, 0,
                 st>>>(
       dy, y, scratch + p.dz_at, n_dz, vec_dz, w, wt, K * K, Cin, Cout);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-
-  // dx tiles' work follows the taps that reach their pixels (at conv4 the
-  // middle pixel's 36 against a mean of 10.7), so dx aims at four times
-  // the rule's blocks, for the card to even out.
-  const DxArgs dxa{dz, wt, dx, B * H * W, p.s};
-  const int dx_tile = dx_tile_for(dxa.M, Cin, 4 * want);
-  e = launch_dx_plan(dx_tile, dxa, Cin % 4 == 0 && aligned16(dx), st);
-  if (e != cudaSuccess) return static_cast<int>(e);
-
+  cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) e = launch_dx_gemm(dz, wt, dx, p.s, st);
   float* part = scratch + p.part_at;
-  const DwArgs dwa{x, dz, part, p.Mw, p.Mp, p.L,
-                   Cout % 4 == 0 && aligned16(dz), p.s};
-  e = launch_dw_plan(dwa, p, Cin % 4 == 0 && aligned16(x), st);
+  if (e == cudaSuccess) e = launch_dw_gemm(x, dz, part, p.s, p.dw, st);
   if (e != cudaSuccess) return static_cast<int>(e);
-
-  const int n_out = p.Mw * Cout;
+  const int n_out = p.dw.Mw * Cout;
   slice_sum_kernel<<<(unsigned)cdiv(n_out, 32), dim3(32, kSumLanes), 0, st>>>(
-      part, dw, db, n_out, n_out - Cout, p.slices);
+      part, dw, db, n_out, n_out - Cout, p.dw.slices);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dx alone (dz = dy): w transposed into `wt` (K*K*Cin*Cout floats, 16-byte
+// aligned), then the fused backward's dx GEMM.
+extern "C" int repro_conv2d_dx(const float* dy, const float* w, float* wt,
+                               float* dx, int B, int H, int W, int Cin,
+                               int K, int Cout, void* stream) {
+  Shapes s;
+  const int err = make_shapes(s, B, H, W, Cin, K, Cout);
+  if (err) return err;
+  if (!aligned16(wt)) return static_cast<int>(cudaErrorMisalignedAddress);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  prep_kernel<<<stride_grid((long long)K * K * Cin * Cout), kPrepThreads, 0,
+                st>>>(dy, nullptr, nullptr, 0, false, w, wt, K * K, Cin,
+                      Cout);
+  cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) e = launch_dx_gemm(dy, wt, dx, s, st);
+  return static_cast<int>(e);
+}
+
+// Floats of partial sums repro_conv2d_dw needs for these shapes and batch
+// blocks of bb images (a divisor of B), or a negative CUDA error.  The
+// shapes and bb alone decide it.
+extern "C" int repro_conv2d_dw_scratch(int B, int H, int W, int Cin, int K,
+                                       int Cout, int bb) {
+  Shapes s;
+  DwPlan d;
+  int err = make_shapes(s, B, H, W, Cin, K, Cout);
+  if (!err) err = dw_plan(d, s, K * K * Cin, bb);
+  return err ? -err : static_cast<int>(d.floats);
+}
+
+// dw alone (dz = dy), summed over batch blocks of bb images in block order;
+// `part` holds repro_conv2d_dw_scratch(...) floats, 16-byte aligned.
+extern "C" int repro_conv2d_dw(const float* x, const float* dy, float* dw,
+                               float* part, int B, int H, int W, int Cin,
+                               int K, int Cout, int bb, void* stream) {
+  Shapes s;
+  DwPlan d;
+  int err = make_shapes(s, B, H, W, Cin, K, Cout);
+  if (!err) err = dw_plan(d, s, K * K * Cin, bb);
+  if (err) return err;
+  if (!aligned16(part)) return static_cast<int>(cudaErrorMisalignedAddress);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = launch_dw_gemm(x, dy, part, s, d, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_dw = d.Mw * Cout;
+  block_sum_kernel<<<(unsigned)cdiv(n_dw, 32), dim3(32, kSumLanes), 0, st>>>(
+      part, dw, n_dw, B / bb, d.S);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,9 +14,9 @@
 // one thread's fmaf chain over the reduction index in chunk order, so its
 // bits do not depend on the tile, and zero-filled entries add exact zeros.
 //
-// Included by conv2d.cu (the forward), conv2d_bwd.cu (the fused backward)
-// and conv2d_split_bwd.cu (which takes only min_blocks); nvcc compiles it
-// into each, and build.py hashes it with the sources.
+// Included by conv2d.cu (the forward) and conv2d_bwd.cu (the fused and the
+// split backward); nvcc compiles it into each, and build.py hashes it with
+// the sources.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -15,7 +15,8 @@ The flash-attention kernels (``kernels/flash_attention.py``) are in
 serving path calls the forward's wrapper directly.  So is the WKV kernel
 (``kernels/wkv6.py``), which has no backward: RWKV-6 scoring calls its
 wrapper directly.  So are the split conv backward kernels
-(``conv2d_dx``, ``conv2d_dw``), which no model calls and which, as in the
+(``conv2d_dx``, ``conv2d_dw``: the fused backward's dx and dw GEMMs, each
+launched on its own), which no model calls and which, as in the
 reference, have no ``Function``.
 
 The saved-activation entry points (``conv2d_bias_tanh_bwd``,

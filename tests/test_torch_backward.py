@@ -173,7 +173,7 @@ def test_conv2d_bwd_fused_launches_its_kernel_for_any_shape(
     """The CUDA branch, reached with meta tensors standing in for CUDA ones
     (the device check and the library stubbed): one counted launch with the
     C arguments, a scratch buffer of the size the library asks for, and
-    kernel sizes past the split kernels' ``BWD_MAX_K``."""
+    any kernel size."""
     calls, asked = [], []
 
     class Lib:

@@ -2,8 +2,10 @@
 where each wrapper runs its plain PyTorch version, against the JAX
 package's Pallas ``conv2d_dx`` / ``conv2d_dw`` in interpret mode, against
 ``jax.vjp`` of the XLA conv and against the port's fused backward.  The
-CUDA kernels are held against these plain versions on the card by
-chip_smoke.py."""
+CUDA kernels are held against these plain versions (and ``conv2d_dx``
+against the fused kernel's dx, bit for bit) on the card by chip_smoke.py;
+here their CUDA branches are reached with meta tensors and the library
+stubbed."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +35,9 @@ CASES = [
     (2, 11, 11, 60, 6, 100, 8),   # chaos-large conv4
     (3, 13, 17, 5, 4, 33, 2),     # H < W; blocks of 1
     (2, 17, 11, 8, 3, 40, 8),     # H > W, Cin a multiple of 4
+    (2, 12, 12, 3, 10, 6, 1),     # K = 10, one image per block
+    (2, 10, 120, 3, 5, 64, 2),    # a dy row of 124 x 64 (the K-row slab
+                                  # of 155 KB the pre-GEMM kernel refused)
 ]
 
 
@@ -161,38 +166,91 @@ def test_kernel_branch_checks_before_any_launch(monkeypatch):
     monkeypatch.setattr(K.build, "launch", lambda *a: pytest.fail("launched"))
     monkeypatch.setattr(K.build, "lib", lambda: pytest.fail("built"))
     meta = lambda *s: torch.empty(s, dtype=torch.float32, device="meta")
-    with pytest.raises(ValueError, match="up to 8"):
-        K.conv2d_dw(meta(2, 12, 12, 3), meta(2, 3, 3, 4), (10, 10, 3, 4))
+    for call in (lambda: K.conv2d_dw(meta(8192, 512, 512, 1),
+                                     meta(8192, 510, 510, 1), (3, 3, 1, 1)),
+                 lambda: K.conv2d_dx(meta(8192, 510, 510, 1),
+                                     meta(3, 3, 1, 1), (8192, 512, 512, 1))):
+        with pytest.raises(ValueError, match="32-bit offsets"):
+            call()
     with pytest.raises(ValueError, match="expected"):  # meta is no CUDA device
         K.conv2d_dw(meta(2, 9, 9, 3), meta(2, 7, 7, 4), (3, 3, 3, 4))
     with pytest.raises(ValueError, match="expected"):
         K.conv2d_dx(meta(2, 7, 7, 4), meta(3, 3, 3, 4), (2, 9, 9, 3))
 
 
-@pytest.mark.parametrize("B,H,K_,W,Cout", [
-    (256, 29, 4, 29, 20), (256, 26, 5, 26, 60), (256, 11, 6, 11, 100),
-    (8, 26, 5, 26, 60), (3, 13, 4, 17, 33), (1, 100, 3, 100, 2)])
-def test_conv2d_dx_takes_shapes_whose_dy_rows_fit_shared_memory(B, H, K_, W,
-                                                                Cout):
-    """The wrapper's only say in the launch geometry: the most input rows
-    whose slab of rows + K - 1 dy rows, W + K - 1 wide, fits in
-    ``BWD_SMEM_BYTES`` is at least one (the kernel picks its row blocks
-    within it)."""
-    fit = K._slab_rows("conv2d_dx", K_, W, Cout)
-    row = (W + K_ - 1) * Cout * 4
-    assert fit >= 1
-    assert (fit + K_ - 1) * row <= K.BWD_SMEM_BYTES < (fit + K_) * row
+#: (B, H, W, Cin, K, Cout, batch_block): chaos-large's conv layers at
+#: B=256; the reference benchmark's B=8 row; K = 9; K = 12 = H = W; rows
+#: whose K-row dy slab the pre-GEMM dx kernel refused; Cin 1 with Cout 7;
+#: batch_block 4 at B=6 (blocks of 3); one image per block at B=256.
+ANY_SHAPE = [
+    (256, 29, 29, 1, 4, 20, 8), (256, 26, 26, 20, 5, 60, 8),
+    (256, 11, 11, 60, 6, 100, 8), (8, 26, 26, 20, 5, 60, 8),
+    (2, 20, 18, 4, 9, 8, 8), (2, 12, 12, 3, 12, 5, 8),
+    (1, 12, 200, 3, 5, 64, 8), (1, 8, 300, 3, 3, 90, 8),
+    (3, 29, 29, 1, 4, 7, 8), (6, 13, 13, 5, 5, 10, 4),
+    (256, 11, 11, 60, 6, 100, 1)]
 
 
-@pytest.mark.parametrize("H,K_,W,Cout", [(12, 5, 200, 64), (8, 3, 300, 90)])
-def test_conv2d_dx_refuses_rows_too_wide_for_shared_memory(H, K_, W, Cout,
-                                                           monkeypatch):
-    """Refused before any build or launch; meta tensors stand in for CUDA
-    ones, with the device check stubbed out."""
-    monkeypatch.setattr(K.build, "launch", lambda *a: pytest.fail("launched"))
-    monkeypatch.setattr(K.build, "lib", lambda: pytest.fail("built"))
+def _stub_library(monkeypatch, n_part):
+    """Meta tensors stand in for CUDA ones: the device check passes, the
+    launches are recorded, and the library answers the scratch query with
+    ``n_part``; returns (launches, scratch queries)."""
+    calls, asked = [], []
+
+    class Lib:
+        def repro_conv2d_dw_scratch(self, *args):
+            asked.append(args)
+            return n_part
+
     monkeypatch.setattr(K.build, "check", lambda *a, **k: None)
+    monkeypatch.setattr(K.build, "launch", lambda *a: calls.append(a))
+    monkeypatch.setattr(K.build, "lib", Lib)
+    return calls, asked
+
+
+@pytest.mark.parametrize("B,H,W,Cin,Kk,Cout,bb", ANY_SHAPE)
+def test_split_kernels_launch_for_any_shape(B, H, W, Cin, Kk, Cout, bb,
+                                            monkeypatch):
+    """Each wrapper's CUDA branch makes one counted launch with the C
+    arguments for every kernel size and row width; conv2d_dw sizes its
+    partial sums by the library's answer for the shapes and the batch
+    block."""
+    n_part = 1000 + B + Kk
+    calls, asked = _stub_library(monkeypatch, n_part)
     meta = lambda *s: torch.empty(s, dtype=torch.float32, device="meta")
-    with pytest.raises(ValueError, match="conv2d_dx.*shared memory"):
-        K.conv2d_dx(meta(1, H - K_ + 1, W - K_ + 1, Cout),
-                    meta(K_, K_, 3, Cout), (1, H, W, 3))
+    Ho, Wo = H - Kk + 1, W - Kk + 1
+    x, dy, w = meta(B, H, W, Cin), meta(B, Ho, Wo, Cout), \
+        meta(Kk, Kk, Cin, Cout)
+    before = (K.conv2d_dx.launches, K.conv2d_dw.launches)
+    try:
+        dx = K.conv2d_dx(dy, w, x.shape, batch_block=bb)
+        dw = K.conv2d_dw(x, dy, w.shape, batch_block=bb)
+    finally:
+        launches = (K.conv2d_dx.launches - before[0],
+                    K.conv2d_dw.launches - before[1])
+        K.conv2d_dx.launches, K.conv2d_dw.launches = before
+    assert dx.shape == x.shape and dw.shape == w.shape
+    assert launches == (1, 1) and len(calls) == 2
+    assert asked == [(B, H, W, Cin, Kk, Cout, K._divisor_block(B, bb))]
+    (e_dx, d_dx, *a_dx), (e_dw, d_dw, *a_dw) = calls
+    assert e_dx == "repro_conv2d_dx" and d_dx == dy.device
+    assert a_dx[:2] == [dy, w] and a_dx[2].shape == (w.numel(),)
+    assert a_dx[3] is dx and a_dx[4:] == [B, H, W, Cin, Kk, Cout]
+    assert e_dw == "repro_conv2d_dw" and d_dw == x.device
+    assert a_dw[:3] == [x, dy, dw] and a_dw[3].shape == (n_part,)
+    assert a_dw[4:] == [B, H, W, Cin, Kk, Cout, K._divisor_block(B, bb)]
+    for entry, args in ((e_dx, a_dx), (e_dw, a_dw)):
+        assert len(K.build.C_API[entry]) == len(args) + 1  # and the stream
+
+
+def test_conv2d_dw_refuses_partial_sums_the_kernel_refuses(monkeypatch):
+    """A negative answer to the scratch query (more than 2^31 - 1 floats of
+    partial sums, or more than 65535 slices) raises before any launch."""
+    calls, asked = _stub_library(monkeypatch, -1)
+    meta = lambda *s: torch.empty(s, dtype=torch.float32, device="meta")
+    before = K.conv2d_dw.launches
+    with pytest.raises(ValueError, match="partial sums"):
+        K.conv2d_dw(meta(70000, 8, 8, 1), meta(70000, 6, 6, 2),
+                    (3, 3, 1, 2), batch_block=1)
+    assert asked == [(70000, 8, 8, 1, 3, 2, 1)]
+    assert calls == [] and K.conv2d_dw.launches == before

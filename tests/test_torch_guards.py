@@ -159,8 +159,7 @@ def test_build_dir_is_keyed_by_the_sources(monkeypatch, tmp_path):
     (csrc / "pool.cu").write_text((csrc / "pool.cu").read_text() + "\n")
     assert build.build_dir() != before
     assert [p.name for p in build.sources()] == [
-        "conv2d.cu", "conv2d_bwd.cu", "conv2d_split_bwd.cu", "errors.cu",
-        "fc.cu", "fc_bwd.cu",
+        "conv2d.cu", "conv2d_bwd.cu", "errors.cu", "fc.cu", "fc_bwd.cu",
         "flash_attention.cu", "flash_attention_bwd.cu", "pool.cu",
         "pool_bwd.cu", "softmax_xent.cu", "wkv6.cu"]
     # headers are not compiled alone, but an edit of one rebuilds too
@@ -208,6 +207,17 @@ def test_chip_smoke_reads_each_kernels_resources_from_cuobjdump():
          "ILi32ELi128ELi4ELi8ELb1EEEvNS_4ArgsE", 93, 0, 0, 22016),
         ("_ZN46_GLOBAL__N__c7bafbab_13_conv2d_bwd_cu_fb2596fb17conv2d_bwd_"
          "kernelILi6ELi4EEEvNS_4ArgsE", 128, 64, 0, 1024)]
+
+
+def test_chip_smoke_finds_conv_instances_with_stack():
+    """Phase 19 fails on the rows of the conv sources with stack, which the
+    mangled anonymous namespace names by file."""
+    smoke = _chip_smoke()
+    rows = smoke.resource_usage(CUOBJDUMP_SAMPLE)
+    assert smoke.conv_with_stack(rows) == rows[1:]
+    flash = ("_ZN2tc23flash_bwd_dq_mma_kernelILi16EEEvNS_4ArgsE", 255, 8, 0,
+             1024)
+    assert smoke.conv_with_stack([flash, rows[0]]) == []
 
 
 #: ``cuobjdump -sass`` lines of four flash instances: a bf16 backward one
