@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py          # from the repository root, one card
+    python3 chip_smoke.py             # from the repository root, one card
+    python3 chip_smoke.py --kernels   # phases 1, 3, 5 and 19 only
+
+``--kernels`` compares two trees' CNN kernel times and every kernel's bits
+in one call: copy this script into the other tree's root and run it there
+too (it imports the ``src/`` beside it).  It prints no result lines.
 
 Phases (every failure raises and exits non-zero; no phase catches its own):
 
@@ -19,8 +24,15 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
    that the kernel writes in one launch per image; for the fused backward
    conv the Table-2 layers at B=8 too, non-square 13 x 17, B=1, K=1, K=9
    and K = H = W = 12, Cin 1 and 6, Cout 7, 33 and 100, an M' that no dw
-   slice divides, and B=130, where dx tiles span two pixels), and a second
-   call of each bit-identical to the first.
+   slice divides, and B=130, where dx tiles span two pixels; for the FC
+   forward every Din of 1, 17, 900 and 4096 with every Dout of 1, 7, 10
+   and 150 and B of 1, 8 and 257, with and without bias and tanh; for the
+   pool backward C of 1, 3, 5 and 10 (its scalar instance) and 20, 60 and
+   100 (its vector instance) at k=3 with H != W and cropped tails, B=1,
+   all-tied windows, and an x 4 bytes off a 16-byte boundary, which must
+   take the scalar instance; each pool backward case prints the instance
+   it ran by torch.profiler), and a second call of each bit-identical to
+   the first.
 3. The eval path: chaos-large evaluated through ``get_ops(...).loss`` on
    ``cuda`` over 8 shared-queue batches of 256, with every launch count set
    to 0 just before and read just after (exactly 3 conv + 2 pool + 2 fc +
@@ -37,7 +49,11 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
 5. Times: each kernel at the training step's shapes against its plain
    version, one PyTorch library call for the same function (a yardstick
    the port never calls) and its bound on the card, by CUDA events,
-   median of 21 samples taken in alternating turns after warm-up; the
+   median of 21 samples taken in alternating turns after warm-up; beside
+   it the device time per call of the kernel and of the library call by
+   torch.profiler and the host time per call of each (the host clock
+   around HOST_CALLS calls with no synchronize between them, which is
+   what the caller waits to enqueue one); the
    eval time per batch, the optimizer's time and the training step's time
    at B=8 and B=256; for each conv layer the fused backward's ms and
    TFLOP/s beside the library pair's.  The CNN phases then free their
@@ -140,7 +156,10 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
     row (B=8, 26x26x20, K=5, Cout 60).
 19. Kernel bits and resources: a SHA-256 digest of the outputs of
     ``conv2d_fwd``, ``conv2d_bwd_fused``, ``conv2d_dx`` and ``conv2d_dw``
-    at chaos-large's three conv layers at B=256, and of
+    at chaos-large's three conv layers at B=256, of ``fc_fwd`` at both
+    chaos-large FC layers with and without bias and tanh, of
+    ``maxpool2d_bwd`` at both chaos-large pools and a tied, cropped
+    scalar-instance case, and of
     ``flash_attention_bwd``'s dq, dk and dv at the training shape (bf16)
     and one f32 case, on inputs drawn from
     ``torch.Generator("cuda").manual_seed(DIGEST_SEED)`` (the digest of the
@@ -153,8 +172,8 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
     the f32 digests of both kernels stay put.  Then the registers, stack
     and local memory (spills) and static shared memory of every compiled
     kernel instance of the library from ``cuobjdump
-    --dump-resource-usage``, failing on any instance of the conv sources
-    with stack; the tensor-core MMA instructions of every
+    --dump-resource-usage``, failing on any instance of the conv, FC
+    forward and pool backward sources with stack; the tensor-core MMA instructions of every
     flash forward and backward instance from ``cuobjdump -sass`` (above 0
     in each bf16 instance, 0 in each f32 and f32-over-bf16 one; no bf16
     instance spills; the expected number of instances of each).
@@ -165,6 +184,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
 import json
 import math
 import re
@@ -384,8 +404,55 @@ CONV_BWD_CASES = [(BATCH, 29, 29, 1, 4, 20, True),
 #: offsets are 32-bit, so it launches once per image.  (B, H, W, Cin, K,
 #: Cout)
 CONV_FWD_HUGE = (2, 1024, 1024, 1, 1, 1024)
+#: fc_fwd's edge cases: every Din of FC_EDGE_DIN with every Dout and B,
+#: the (activation, bias) pairs taken in turn, so each pair meets every Din
+#: (4096 and 1 no multiple of the kernel's 16-row tile; 1, 17 and 900 no
+#: multiple of its 16-entry chunk).
+FC_EDGE_DIN = (1, 17, 900, 4096)
+FC_EDGE_DOUT = (1, 7, 10, 150)
+FC_EDGE_B = (1, 8, 257)
+FC_EDGE_FORMS = (("tanh", True), (None, True), ("tanh", False),
+                 (None, False))
+#: maxpool2d_bwd's edge cases ((B, H, W, C), k, inputs, x's data pointer
+#: 4 bytes off a 16-byte boundary): C of the scalar instance (1, 3, 5, 10)
+#: and of the vector one (20, 60, 100) at k = 3 with H != W and both tails
+#: cropped, on saturated tanh (tied maxima); B=1 with a cropped column and
+#: with a cropped row and column; all-tied windows of ones at both
+#: instances; and a misaligned x, which must take the scalar instance.
+POOL_BWD_EDGES = (
+    [((2, 11, 8, c), 3, "saturated", False) for c in (1, 3, 5, 10)]
+    + [((2, 11, 8, c), 3, "saturated", False) for c in (20, 60, 100)]
+    + [((1, 8, 13, 60), 2, "uniform", False),
+       ((1, 7, 7, 5), 2, "uniform", False),
+       ((2, 6, 6, 20), 2, "ones", False), ((3, 7, 5, 3), 3, "ones", False),
+       ((2, 8, 8, 20), 2, "uniform", True)])
 #: Phase 19: the seed of the digests' inputs.
 DIGEST_SEED = 19
+#: Phase 19: fc_fwd's digest cases (B, Din, Dout, activation, bias): both
+#: chaos-large FC layers at B=256 as the main path calls them and with the
+#: activation and bias the other way round.
+FC_DIGEST_CASES = [(BATCH, 900, 150, "tanh", True),
+                   (BATCH, 900, 150, None, False),
+                   (BATCH, 150, 10, None, True),
+                   (BATCH, 150, 10, "tanh", False)]
+#: Phase 19: maxpool2d_bwd's digest cases ((B, H, W, C), k, inputs): both
+#: chaos-large pools at B=256, and saturated tanh inputs (tied maxima) with
+#: C = 10 (the scalar instance) and a cropped tail.
+POOL_DIGEST_CASES = [((BATCH, 22, 22, 60), 2, "uniform"),
+                     ((BATCH, 6, 6, 100), 2, "uniform"),
+                     ((BATCH, 7, 7, 10), 3, "saturated")]
+#: Phase 5: calls of each kernel and of its library call in one
+#: torch.profiler trace (device time per call), and calls of each around
+#: the host clock with no synchronize between them (host time per call).
+PROFILE_CALLS = 20
+HOST_CALLS = 200
+#: Traces taken before a profiler reading is given up: now and then a trace
+#: of a few short kernels holds no device events.
+PROFILE_TRIES = 3
+#: Phase 19 fails on an instance of these sources with stack (the mangled
+#: anonymous namespace carries the file name): the kernels redesigned for
+#: the H100 on CUDA cores.
+NO_STACK_SOURCES = ("conv2d", "conv2d_bwd", "fc", "pool_bwd")
 #: Phase 19: the flash backward's digest cases, (label, B, T, Hq, Hkv, D,
 #: dtype, causal): the training shape in bf16 (the tensor-core instances)
 #: and one f32 case (the CUDA-core instances, whose bits stay put).
@@ -433,9 +500,46 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 # Phase 2: parity
 # ---------------------------------------------------------------------------
+def fc_edge_cases() -> list:
+    """(B, Din, Dout, activation, bias) of fc_fwd's phase-2 edge cases."""
+    combos = itertools.product(FC_EDGE_DIN, FC_EDGE_DOUT, FC_EDGE_B)
+    return [(B, Din, Dout, *FC_EDGE_FORMS[i % len(FC_EDGE_FORMS)])
+            for i, (Din, Dout, B) in enumerate(combos)]
+
+
+def misaligned(torch, x):
+    """A contiguous copy of ``x`` whose data pointer lies 4 bytes past a
+    16-byte boundary (the allocator's blocks start on one)."""
+    out = torch.empty(x.numel() + 1, device=x.device)[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def pool_bwd_instances(names) -> list:
+    """Channels a thread of each maxpool2d_bwd instance among device kernel
+    names, demangled (``maxpool2d_bwd_kernel<4>``) or not (``ILi4E``)."""
+    found = (re.search(r"maxpool2d_bwd_kernel(?:<(\d+)>|ILi(\d+)E)", name)
+             for name in names)
+    return [int(m.group(1) or m.group(2)) for m in found if m]
+
+
+def traced_kernels(torch, fn) -> list:
+    """Names of the device kernels that one call of ``fn`` ran, from a
+    torch.profiler trace (up to PROFILE_TRIES traces: one now and then
+    holds no device events)."""
+    for _ in range(PROFILE_TRIES):
+        prof = profile_steps(torch, fn, steps=1)
+        if prof is not None:
+            return [name for name, _ in prof[1]]
+    raise AssertionError(f"torch.profiler recorded no device events in "
+                         f"{PROFILE_TRIES} traces")
+
+
 def parity_cases(torch, K, P, FC):
     """(kernel name, label, kernel call, plain call) at the main path's
-    shapes and edge shapes, on the card."""
+    shapes and edge shapes, on the card; a maxpool2d_bwd case also names
+    the channels a thread of the instance it must run (4 where C % 4 == 0
+    and every pointer is 16-byte aligned, else 1)."""
     g = torch.Generator().manual_seed(1234)
 
     def u(*shape):  # activations in [-1, 1], as tanh leaves them
@@ -464,7 +568,8 @@ def parity_cases(torch, K, P, FC):
                       lambda x=x, k=k: P.maxpool2d_fwd_plain(x, k)))
     for (B, Din, Dout, act, bias) in [(BATCH, 900, 150, "tanh", True),
                                       (BATCH, 150, 10, None, True),
-                                      (3, 37, 19, "tanh", False)]:
+                                      (3, 37, 19, "tanh", False),
+                                      *fc_edge_cases()]:
         x = u(B, Din)
         w = n(Din, Dout, scale=1 / math.sqrt(Din))
         b = n(Dout, scale=0.1) if bias else None
@@ -493,19 +598,26 @@ def parity_cases(torch, K, P, FC):
                       K.conv2d_bwd_fused(x, dy, w, y),
                       lambda x=x, dy=dy, w=w, y=y:
                       K.conv2d_bwd_fused_plain(x, dy, w, y)))
-    for (x, k, what) in [(u(BATCH, 22, 22, 60), 2, "chaos-large pool3"),
-                         (u(BATCH, 6, 6, 100), 2, "chaos-large pool5"),
-                         (u(3, 7, 7, 5), 2, "cropped tail"),
-                         (torch.tanh(n(4, 9, 9, 10, scale=20.0)), 3,
-                          "tied maxima"),
-                         (torch.zeros(2, 6, 6, 3, device="cuda"), 2,
-                          "all-zero windows")]:
+    pool_inputs = {"uniform": u, "ones": lambda *s: torch.ones(s).cuda(),
+                   "saturated": lambda *s: torch.tanh(n(*s, scale=20.0))}
+    pools = [(u(BATCH, 22, 22, 60), 2, "chaos-large pool3"),
+             (u(BATCH, 6, 6, 100), 2, "chaos-large pool5"),
+             (u(3, 7, 7, 5), 2, "cropped tail"),
+             (torch.tanh(n(4, 9, 9, 10, scale=20.0)), 3, "tied maxima"),
+             (torch.zeros(2, 6, 6, 3, device="cuda"), 2, "all-zero windows")]
+    for shape, k, kind, off in POOL_BWD_EDGES:
+        x = pool_inputs[kind](*shape)
+        pools.append((misaligned(torch, x) if off else x, k,
+                      kind + (", x 4 bytes off 16" if off else "")))
+    for (x, k, what) in pools:
         y = P.maxpool2d_fwd_plain(x, k)
         dy = n(*y.shape)
+        vec = x.shape[3] % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                          for t in (x, y, dy))
         cases.append(("maxpool2d_bwd", f"{what} x{tuple(x.shape)} k={k}",
                       lambda x=x, y=y, dy=dy, k=k: P.maxpool2d_bwd(x, y, dy, k),
                       lambda x=x, y=y, dy=dy, k=k:
-                      P.maxpool2d_bwd_plain(x, y, dy, k)))
+                      P.maxpool2d_bwd_plain(x, y, dy, k), 4 if vec else 1))
     for (B, Din, Dout, tanh) in [(BATCH, 900, 150, True),
                                  (BATCH, 150, 10, False),
                                  (3, 37, 19, True)]:
@@ -523,7 +635,7 @@ def parity_cases(torch, K, P, FC):
 
 def check_parity(torch, K, P, FC) -> dict:
     worst = {name: 0.0 for name in TOL}
-    for name, label, kern, plain in parity_cases(torch, K, P, FC):
+    for name, label, kern, plain, *instance in parity_cases(torch, K, P, FC):
         got, again, want = kern(), kern(), plain()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
@@ -553,6 +665,15 @@ def check_parity(torch, K, P, FC) -> dict:
                     f"{name} {label}: max |kernel - plain| = "
                     f"{diff.max().item():.3e} over atol {atol} rtol {rtol}")
         worst[name] = max(worst[name], err)
+        if instance:
+            ran = pool_bwd_instances(traced_kernels(torch, kern))
+            if ran != instance:
+                raise AssertionError(f"{name} {label}: ran the instances of "
+                                     f"{ran} channels a thread, expected "
+                                     f"{instance}")
+            label += (f"; ran maxpool2d_bwd_kernel<{ran[0]}> ("
+                      f"{'vector' if ran[0] == 4 else 'scalar'}, by "
+                      f"torch.profiler)")
         print(f"parity {name:17s} {label}: max_abs_err={err:.3e}; second "
               f"call bit-identical", flush=True)
     worst["conv2d_fwd"] = max(worst["conv2d_fwd"], check_conv_fwd_huge(torch,
@@ -1012,6 +1133,145 @@ def profile_steps(torch, one, steps: int = 10):
     return (busy / (end - start),
             sorted(by_name.items(), key=lambda kv: -kv[1]),
             len(kernels) / steps, counts)
+
+
+def device_ms(torch, fn, calls: int = PROFILE_CALLS):
+    """Device ms per call of ``fn`` (every device kernel it ran, summed)
+    over ``calls`` calls in one torch.profiler trace, and the kernels'
+    names; (None, []) when PROFILE_TRIES traces hold no device events."""
+    for _ in range(PROFILE_TRIES):
+        prof = profile_steps(torch, fn, steps=calls)
+        if prof is not None:
+            return sum(ms for _, ms in prof[1]), [n for n, _ in prof[1]]
+    return None, []
+
+
+def host_ms(torch, fn, calls: int = HOST_CALLS) -> float:
+    """Host-clock ms per call over ``calls`` calls of ``fn`` with no
+    synchronize between them: what the caller waits to enqueue one (a
+    device slower than that fills the queue, and then the time is the
+    device's)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
+
+
+def cnn_times(torch, F, K, P, FC, ops, params, batches, images,
+              labels) -> dict:
+    """Phase 5: every CNN kernel call of a chaos-large step at B=256 by
+    CUDA events against its plain version, its library call and its bound,
+    with the device time of the kernel and of the library call by
+    torch.profiler and the host time per call of each; then the eval,
+    optimizer and step times.  Returns the per-step totals by kernel."""
+    calls = (main_path_calls(torch, F, K, P, FC, ops.cfg, params, batches[0])
+             + backward_calls(torch, F, K, P, FC, ops.cfg, params,
+                              batches[0]))
+    totals = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                  "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
+                  "device_ms": 0.0, "library_device_ms": 0.0,
+                  "host_ms": 0.0}
+              for n in SOURCES}
+    for name, label, kern, plain, library, n_ops, n_bytes in calls:
+        t = time_turns(torch, {"ms": kern, "plain_ms": plain,
+                               "library_ms": library})
+        bound, t_ops, t_bytes = bound_of(n_ops, n_bytes)
+        dev, names = device_ms(torch, kern)
+        lib_dev, lib_names = device_ms(torch, library)
+        host, lib_host = host_ms(torch, kern), host_ms(torch, library)
+        row = totals[name]
+        for key in ("ms", "plain_ms", "library_ms"):
+            row[key] += t[key]
+        row["bound_ms"] += bound
+        row["ops_ms"] += t_ops
+        row["bytes_ms"] += t_bytes
+        row["device_ms"] += dev or math.nan
+        row["library_device_ms"] += lib_dev or math.nan
+        row["host_ms"] += host
+        print(f"time {name:17s} {label}: kernel {t['ms']:.6f} ms, plain "
+              f"{t['plain_ms']:.6f} ms, library {t['library_ms']:.6f} ms, "
+              f"bound {bound:.6f} ms by "
+              f"{'operations' if t_ops >= t_bytes else 'bytes'} "
+              f"({n_ops:.4g} ops, {n_bytes:.4g} bytes)", flush=True)
+        print(f"device {name:17s} {label}: " + (
+            f"kernel {dev:.6f} ms, library {lib_dev:.6f} ms per call "
+            f"(torch.profiler, {PROFILE_CALLS} calls; kernel "
+            f"{'; '.join(n[:60] for n in names)}; library "
+            f"{'; '.join(n[:60] for n in lib_names)})"
+            if dev is not None and lib_dev is not None else
+            "not measured (the profiler recorded no device events)")
+            + f"; host {host:.6f} ms per kernel call, {lib_host:.6f} ms per "
+            f"library call (host clock, {HOST_CALLS} calls, no synchronize)",
+            flush=True)
+        if name == "conv2d_bwd_fused":
+            print(f"backward {label}: conv2d_bwd_fused {t['ms']:.6f} ms, "
+                  f"{n_ops / t['ms'] / 1e9:.2f} TFLOP/s; library pair "
+                  f"(conv2d_input + conv2d_weight) {t['library_ms']:.6f} ms,"
+                  f" {n_ops / t['library_ms'] / 1e9:.2f} TFLOP/s ({n_ops:.4g}"
+                  f" FLOP of dx, dw and dz)", flush=True)
+    for name, row in totals.items():
+        print(f"step {name} per chaos-large step of {BATCH}: kernel "
+              f"{row['ms']:.6f} ms (events), {row['device_ms']:.6f} ms "
+              f"(device), {row['host_ms']:.6f} ms (host); library "
+              f"{row['library_ms']:.6f} ms (events), "
+              f"{row['library_device_ms']:.6f} ms (device); plain "
+              f"{row['plain_ms']:.6f} ms; bound {row['bound_ms']:.6f} ms",
+              flush=True)
+
+    def eval_once():
+        with torch.inference_mode():
+            for b in batches:
+                ops.loss(params, b)
+        torch.cuda.synchronize()
+
+    eval_once()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        eval_once()
+        walls.append(time.perf_counter() - t0)
+    ev = time_turns(torch, {"eval": lambda: [ops.loss(params, b)
+                                             for b in batches]},
+                    reps=5, inner=1)
+    print(f"chaos-large eval, B={BATCH}: {statistics.median(walls) * 1e3 / EVAL_BATCHES:.6f}"
+          f" ms per batch (host clock, median of 5) and "
+          f"{ev['eval'] / EVAL_BATCHES:.6f} ms per batch (CUDA events)",
+          flush=True)
+
+    from repro_torch.train.step import make_optimizer
+    opt = make_optimizer(ops.cfg)
+    _, _, grads = ops.loss_and_grads(params, batches[0])
+    opt_state = opt.init(params)
+    opt_ms = time_turns(torch, {"opt": lambda: opt.apply(
+        params, grads, opt_state, 0)})["opt"]
+    kernel_ms = sum(row["ms"] for row in totals.values())
+    print(f"optimizer apply (sgd, chaos-large): {opt_ms:.6f} ms (CUDA "
+          f"events)", flush=True)
+    for batch in (8, BATCH):
+        wall_ms, ev_ms, prof = step_times(torch, ops.cfg, images, labels,
+                                          batch)
+        print(f"chaos-large bsp training step, B={batch}: {wall_ms:.6f} ms "
+              f"(host clock, median of 20 synchronized steps) and "
+              f"{ev_ms:.6f} ms (CUDA events, 10 steps back to back)",
+              flush=True)
+        if prof is None:
+            print(f"B={batch}: the profiler recorded no device events; "
+                  f"device busy share not measured", flush=True)
+            continue
+        share, by_name, _, _ = prof
+        print(f"B={batch}: device busy {100 * share:.2f} % of the traced "
+              f"span of 10 steps (torch.profiler); device ms per step by "
+              f"kernel: " + "; ".join(f"{name[:60]} {ms:.6f}"
+                                      for name, ms in by_name[:12]),
+              flush=True)
+    print(f"at B={BATCH}: the seven kernels' times above sum to "
+          f"{kernel_ms:.6f} ms against the {ev_ms:.6f} ms step; the "
+          f"optimizer takes {opt_ms:.6f} ms", flush=True)
+    torch.cuda.synchronize()
+    return totals
 
 
 # ---------------------------------------------------------------------------
@@ -2615,6 +2875,48 @@ def conv_bits(torch, K, build) -> None:
                   f"{what}: sha256 {first}{plan}", flush=True)
 
 
+def fc_bits(torch, FC) -> None:
+    """Digests of ``fc_fwd``'s output at FC_DIGEST_CASES, on inputs from a
+    CUDA generator; two runs of each equal."""
+    g = torch.Generator(device="cuda").manual_seed(DIGEST_SEED)
+    for B, Din, Dout, act, bias in FC_DIGEST_CASES:
+        x = torch.rand((B, Din), generator=g, device="cuda") * 2 - 1
+        w = torch.randn((Din, Dout), generator=g, device="cuda") \
+            / math.sqrt(Din)
+        b = (torch.randn((Dout,), generator=g, device="cuda") * 0.1
+             if bias else None)
+        first, second = (digest(torch, (FC.fc_fwd(x, w, b, act),))
+                         for _ in range(2))
+        if first != second:
+            raise AssertionError(f"fc_fwd x{(B, Din)} w{(Din, Dout)}: two "
+                                 f"runs differ")
+        inputs = (x, w) if b is None else (x, w, b)
+        print(f"digest fc_fwd x{(B, Din)} w{(Din, Dout)} act={act} "
+              f"bias={bias}: inputs sha256 {digest(torch, inputs)}; y sha256"
+              f" {first}", flush=True)
+
+
+def pool_bwd_bits(torch, P) -> None:
+    """Digests of ``maxpool2d_bwd``'s dx at POOL_DIGEST_CASES, on x and dy
+    from a CUDA generator (y their max pool); two runs of each equal."""
+    g = torch.Generator(device="cuda").manual_seed(DIGEST_SEED)
+    for shape, k, kind in POOL_DIGEST_CASES:
+        if kind == "saturated":
+            x = torch.tanh(torch.randn(shape, generator=g, device="cuda") * 20)
+        else:
+            x = torch.rand(shape, generator=g, device="cuda") * 2 - 1
+        y = P.maxpool2d_fwd_plain(x, k)
+        dy = torch.randn(tuple(y.shape), generator=g, device="cuda")
+        first, second = (digest(torch, (P.maxpool2d_bwd(x, y, dy, k),))
+                         for _ in range(2))
+        if first != second:
+            raise AssertionError(f"maxpool2d_bwd x{shape} k={k}: two runs "
+                                 f"differ")
+        print(f"digest maxpool2d_bwd x{shape} k={k} {kind}: inputs x, y, dy "
+              f"sha256 {digest(torch, (x, y, dy))}; dx sha256 {first}",
+              flush=True)
+
+
 def flash_bwd_bits(torch, FA) -> None:
     """Digests of ``flash_attention_bwd``'s dq, dk and dv at
     FLASH_DIGEST_CASES, on q, k, v and dout from a CUDA generator (out and
@@ -2749,23 +3051,41 @@ def kernel_resources(build) -> dict:
             spilled.append(name)
     print(f"resources: {len(rows)} kernel instances; with stack or local "
           f"memory (spills): {'; '.join(spilled) or 'none'}", flush=True)
-    stacked = conv_with_stack(rows)
-    conv = [name for name, row in zip(names, rows) if row in stacked]
-    if conv:
-        raise AssertionError(f"conv kernel instances with stack: "
-                             f"{'; '.join(conv)}")
+    stacked = held_with_stack(rows)
+    held = [name for name, row in zip(names, rows) if row in stacked]
+    if held:
+        raise AssertionError(f"kernel instances of "
+                             f"{', '.join(NO_STACK_SOURCES)} with stack: "
+                             f"{'; '.join(held)}")
     return {name: row[1:] for name, row in zip(names, rows)}
 
 
-def conv_with_stack(rows: list) -> list:
-    """The rows of ``resource_usage`` that belong to an instance of the conv
-    sources (``conv2d.cu``, ``conv2d_bwd.cu``, whose file names the mangled
-    anonymous namespace carries) and have stack."""
+def held_with_stack(rows: list) -> list:
+    """The rows of ``resource_usage`` that belong to an instance of
+    NO_STACK_SOURCES (whose file names the mangled anonymous namespace
+    carries, as ``_9_conv2d_cu_``) and have stack."""
+    sources = "|".join(NO_STACK_SOURCES)
     return [row for row in rows
-            if re.search(r"_\d+_conv2d(_bwd)?_cu_", row[0]) and row[2]]
+            if re.search(rf"_\d+_({sources})_cu_", row[0]) and row[2]]
 
 
-def main() -> int:
+def kernel_bits(torch, K, FC, P, FA, build) -> None:
+    """Phase 19."""
+    conv_bits(torch, K, build)
+    fc_bits(torch, FC)
+    pool_bwd_bits(torch, P)
+    flash_fwd_bits(torch, FA)
+    flash_bwd_bits(torch, FA)
+    flash_sass(build, kernel_resources(build))
+    torch.cuda.synchronize()
+
+
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    if args not in ([], ["--kernels"]):
+        print("usage: python3 chip_smoke.py [--kernels]", file=sys.stderr)
+        return 2
+    kernels_only = bool(args)
     import torch
 
     if not torch.cuda.is_available():
@@ -2800,9 +3120,10 @@ def main() -> int:
           flush=True)
     torch.cuda.synchronize()
 
-    phase("2 per-kernel parity against the plain versions")
-    max_err = check_parity(torch, K, P, FC)
-    torch.cuda.synchronize()
+    if not kernels_only:
+        phase("2 per-kernel parity against the plain versions")
+        max_err = check_parity(torch, K, P, FC)
+        torch.cuda.synchronize()
 
     phase("3 eval path: chaos-large eval through get_ops on cuda")
     images, labels = make_dataset(EVAL_BATCHES * BATCH, seed=2)
@@ -2812,105 +3133,32 @@ def main() -> int:
         torch, kops, launch_trace, "chaos-large", LARGE_PER_BATCH, batches_np)
     print(f"chaos-large first pass: {seconds * 1e3 / EVAL_BATCHES:.4f} ms per "
           f"batch (host clock, synchronized)", flush=True)
-    for name in ("chaos-small", "chaos-medium"):
-        run_net(torch, kops, launch_trace, name, SMALL_PER_BATCH,
-                batches_np[:1])
+    if not kernels_only:
+        for name in ("chaos-small", "chaos-medium"):
+            run_net(torch, kops, launch_trace, name, SMALL_PER_BATCH,
+                    batches_np[:1])
+        phase("4 training path: chaos-large trained through make_train_step"
+              " / make_superstep on cuda")
+        train_counts = check_training(torch, kops, launch_trace,
+                                      batches_np[:TRAIN_STEPS])
     torch.cuda.synchronize()
 
-    phase("4 training path: chaos-large trained through make_train_step / "
-          "make_superstep on cuda")
-    train_counts = check_training(torch, kops, launch_trace,
-                                  batches_np[:TRAIN_STEPS])
-    torch.cuda.synchronize()
-
-    phase("5 times at the training step's shapes (CUDA events, median of 21)")
-    calls = (main_path_calls(torch, F, K, P, FC, ops.cfg, params, batches[0])
-             + backward_calls(torch, F, K, P, FC, ops.cfg, params,
-                              batches[0]))
-    totals = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                  "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0}
-              for n in SOURCES}
-    for name, label, kern, plain, library, n_ops, n_bytes in calls:
-        t = time_turns(torch, {"ms": kern, "plain_ms": plain,
-                               "library_ms": library})
-        bound, t_ops, t_bytes = bound_of(n_ops, n_bytes)
-        row = totals[name]
-        for key in ("ms", "plain_ms", "library_ms"):
-            row[key] += t[key]
-        row["bound_ms"] += bound
-        row["ops_ms"] += t_ops
-        row["bytes_ms"] += t_bytes
-        print(f"time {name:17s} {label}: kernel {t['ms']:.6f} ms, plain "
-              f"{t['plain_ms']:.6f} ms, library {t['library_ms']:.6f} ms, "
-              f"bound {bound:.6f} ms by "
-              f"{'operations' if t_ops >= t_bytes else 'bytes'} "
-              f"({n_ops:.4g} ops, {n_bytes:.4g} bytes)", flush=True)
-        if name == "conv2d_bwd_fused":
-            print(f"backward {label}: conv2d_bwd_fused {t['ms']:.6f} ms, "
-                  f"{n_ops / t['ms'] / 1e9:.2f} TFLOP/s; library pair "
-                  f"(conv2d_input + conv2d_weight) {t['library_ms']:.6f} ms,"
-                  f" {n_ops / t['library_ms'] / 1e9:.2f} TFLOP/s ({n_ops:.4g}"
-                  f" FLOP of dx, dw and dz)", flush=True)
-    row = totals["conv2d_bwd_fused"]
-    print(f"conv2d_bwd_fused per chaos-large step of {BATCH} (3 layers): "
-          f"kernel {row['ms']:.6f} ms, library pair {row['library_ms']:.6f}"
-          f" ms, plain {row['plain_ms']:.6f} ms, bound {row['bound_ms']:.6f}"
-          f" ms", flush=True)
-
-    def eval_once():
-        with torch.inference_mode():
-            for b in batches:
-                ops.loss(params, b)
-        torch.cuda.synchronize()
-
-    eval_once()
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        eval_once()
-        walls.append(time.perf_counter() - t0)
-    ev = time_turns(torch, {"eval": lambda: [ops.loss(params, b)
-                                             for b in batches]},
-                    reps=5, inner=1)
-    print(f"chaos-large eval, B={BATCH}: {statistics.median(walls) * 1e3 / EVAL_BATCHES:.6f}"
-          f" ms per batch (host clock, median of 5) and "
-          f"{ev['eval'] / EVAL_BATCHES:.6f} ms per batch (CUDA events)",
-          flush=True)
-
-    from repro_torch.train.step import make_optimizer
-    opt = make_optimizer(ops.cfg)
-    _, _, grads = ops.loss_and_grads(params, batches[0])
-    opt_state = opt.init(params)
-    opt_ms = time_turns(torch, {"opt": lambda: opt.apply(
-        params, grads, opt_state, 0)})["opt"]
-    kernel_ms = sum(row["ms"] for row in totals.values())
-    print(f"optimizer apply (sgd, chaos-large): {opt_ms:.6f} ms (CUDA "
-          f"events)", flush=True)
-    for batch in (8, BATCH):
-        wall_ms, ev_ms, prof = step_times(torch, ops.cfg, images, labels,
-                                          batch)
-        print(f"chaos-large bsp training step, B={batch}: {wall_ms:.6f} ms "
-              f"(host clock, median of 20 synchronized steps) and "
-              f"{ev_ms:.6f} ms (CUDA events, 10 steps back to back)",
-              flush=True)
-        if prof is None:
-            print(f"B={batch}: the profiler recorded no device events; "
-                  f"device busy share not measured", flush=True)
-            continue
-        share, by_name, _, _ = prof
-        print(f"B={batch}: device busy {100 * share:.2f} % of the traced "
-              f"span of 10 steps (torch.profiler); device ms per step by "
-              f"kernel: " + "; ".join(f"{name[:60]} {ms:.6f}"
-                                      for name, ms in by_name[:12]),
-              flush=True)
-    print(f"at B={BATCH}: the seven kernels' times above sum to "
-          f"{kernel_ms:.6f} ms against the {ev_ms:.6f} ms step; the "
-          f"optimizer takes {opt_ms:.6f} ms", flush=True)
-    torch.cuda.synchronize()
-    del ops, params, batches, calls, opt, grads, opt_state
+    phase("5 times at the training step's shapes (CUDA events, median of "
+          "21; device time by torch.profiler; host time per call)")
+    totals = cnn_times(torch, F, K, P, FC, ops, params, batches, images,
+                       labels)
+    del ops, params, batches
     torch.cuda.empty_cache()
 
     from repro_torch.kernels import flash_attention as FA
+    if kernels_only:
+        phase("19 kernel bits and resources")
+        kernel_bits(torch, K, FC, P, FA, build)
+        print(f"--kernels: phases 1, 3, 5 and 19 only, "
+              f"{time.perf_counter() - t_start:.1f} s; no result lines",
+              flush=True)
+        return 0
+
     phase("6 flash parity against the plain version")
     flash_err = check_flash_parity(torch, FA)
     flash_scale_diagnostic(torch, FA)
@@ -2954,11 +3202,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("19 kernel bits and resources")
-    conv_bits(torch, K, build)
-    flash_fwd_bits(torch, FA)
-    flash_bwd_bits(torch, FA)
-    flash_sass(build, kernel_resources(build))
-    torch.cuda.synchronize()
+    kernel_bits(torch, K, FC, P, FA, build)
 
     phase("20 result")
     kernels = []

@@ -15,8 +15,8 @@
 // bits do not depend on the tile, and zero-filled entries add exact zeros.
 //
 // Included by conv2d.cu (the forward) and conv2d_bwd.cu (the fused and the
-// split backward); nvcc compiles it into each, and build.py hashes it with
-// the sources.
+// split backward), and by fc.cu for its cp.async helpers alone; nvcc
+// compiles it into each, and build.py hashes it with the sources.
 #pragma once
 
 #include <cuda_runtime.h>

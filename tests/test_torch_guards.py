@@ -214,10 +214,91 @@ def test_chip_smoke_finds_conv_instances_with_stack():
     mangled anonymous namespace names by file."""
     smoke = _chip_smoke()
     rows = smoke.resource_usage(CUOBJDUMP_SAMPLE)
-    assert smoke.conv_with_stack(rows) == rows[1:]
+    assert smoke.held_with_stack(rows) == rows[1:]
     flash = ("_ZN2tc23flash_bwd_dq_mma_kernelILi16EEEvNS_4ArgsE", 255, 8, 0,
              1024)
-    assert smoke.conv_with_stack([flash, rows[0]]) == []
+    assert smoke.held_with_stack([flash, rows[0]]) == []
+
+
+#: Mangled names of instances of the FC and pool sources: the redesigned
+#: fc.cu and pool_bwd.cu are held to no stack, fc_bwd.cu and pool.cu not.
+STACK_NAMES = [
+    ("_ZN42_GLOBAL__N__0b1c2d3e_5_fc_cu_4f5e6d7c13fc_fwd_kernelEPKfS1_S1_"
+     "Pfiiii", True),
+    ("_ZN48_GLOBAL__N__0b1c2d3e_11_pool_bwd_cu_4f5e6d7c20maxpool2d_bwd_"
+     "kernelILi4EEEvPKfS2_S2_Pfiiiiiii", True),
+    ("_ZN46_GLOBAL__N__0b1c2d3e_9_fc_bwd_cu_4f5e6d7c13fc_bwd_kernelEv",
+     False),
+    ("_ZN44_GLOBAL__N__0b1c2d3e_7_pool_cu_4f5e6d7c20maxpool2d_fwd_kernelEv",
+     False)]
+
+
+@pytest.mark.parametrize("name,held", STACK_NAMES,
+                         ids=["fc", "pool_bwd", "fc_bwd", "pool"])
+def test_chip_smoke_holds_the_fc_forward_and_pool_backward_to_no_stack(
+        name, held):
+    smoke = _chip_smoke()
+    row = (name, 40, 16, 0, 1024)
+    assert smoke.held_with_stack([row]) == ([row] if held else [])
+    assert smoke.held_with_stack([(name, 40, 0, 0, 1024)]) == []
+
+
+@pytest.mark.parametrize("name,want", [
+    ("void (anonymous namespace)::maxpool2d_bwd_kernel<4>(float const*, "
+     "float const*, float const*, float*, int, int, int, int, int, int, "
+     "int)", [4]),
+    ("_ZN48_GLOBAL__N__0b1c2d3e_11_pool_bwd_cu_4f5e6d7c20maxpool2d_bwd_"
+     "kernelILi1EEEvPKfS2_S2_Pfiiiiiii", [1]),
+    ("void (anonymous namespace)::maxpool2d_fwd_kernel(float const*)", []),
+    ("void (anonymous namespace)::fc_fwd_kernel(float const*)", [])],
+    ids=["demangled", "mangled", "pool-fwd", "fc"])
+def test_chip_smoke_reads_the_pool_backward_instance_from_kernel_names(
+        name, want):
+    assert _chip_smoke().pool_bwd_instances([name]) == want
+
+
+def test_chip_smoke_retries_a_trace_without_device_events(monkeypatch):
+    """A torch.profiler trace now and then holds no device events: the
+    instance check and the device times take another trace, and give up
+    after PROFILE_TRIES (the check fails, the time reads not measured)."""
+    smoke = _chip_smoke()
+    traces = iter([None, (1.0, [("fc_fwd_kernel", 0.004)], 1, {})])
+    monkeypatch.setattr(smoke, "profile_steps",
+                        lambda torch, fn, steps: next(traces))
+    assert smoke.traced_kernels(torch, None) == ["fc_fwd_kernel"]
+    monkeypatch.setattr(smoke, "profile_steps",
+                        lambda torch, fn, steps: None)
+    with pytest.raises(AssertionError, match="no device events"):
+        smoke.traced_kernels(torch, None)
+    assert smoke.device_ms(torch, None) == (None, [])
+
+
+def test_chip_smoke_fc_edge_cases_cover_every_shape_and_form():
+    """Phase 2's fc_fwd edge cases: every (Din, Dout, B) once, each
+    (activation, bias) pair at every Din."""
+    smoke = _chip_smoke()
+    cases = smoke.fc_edge_cases()
+    assert sorted((Din, Dout, B) for B, Din, Dout, _, _ in cases) == sorted(
+        (Din, Dout, B) for Din in (1, 17, 900, 4096)
+        for Dout in (1, 7, 10, 150) for B in (1, 8, 257))
+    for Din in (1, 17, 900, 4096):
+        assert {(a, b) for _, d, _, a, b in cases if d == Din} == {
+            ("tanh", True), (None, True), ("tanh", False), (None, False)}
+
+
+def test_chip_smoke_pool_backward_edges_reach_both_instances():
+    """Phase 2's maxpool2d_bwd edge cases: C of the scalar and the vector
+    instance at k = 3 with cropped tails and H != W, B=1, all-tied windows
+    and one misaligned x with C % 4 == 0."""
+    edges = _chip_smoke().POOL_BWD_EDGES
+    k3 = {shape[3] for shape, k, _, _ in edges
+          if k == 3 and shape[1] != shape[2] and shape[1] % 3 and
+          shape[2] % 3}
+    assert {1, 3, 5, 10, 20, 60, 100} <= k3
+    assert any(shape[0] == 1 for shape, _, _, _ in edges)
+    assert {shape[3] % 4 == 0 for shape, _, kind, _ in edges
+            if kind == "ones"} == {True, False}
+    assert [shape[3] % 4 for shape, _, _, off in edges if off] == [0]
 
 
 #: ``cuobjdump -sass`` lines of four flash instances: a bf16 backward one
@@ -287,15 +368,31 @@ def test_chip_smoke_sorts_the_flash_instances_by_dtype(name, want):
         ("bwd", "bf16"): 2 * n, ("bwd", "f32"): 2 * n}
 
 
-@pytest.mark.parametrize("alone", [False, True])
-def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+def _run_without_a_card(tmp_path, alone, *args):
     script = ROOT / "chip_smoke.py"
     if alone:  # a directory that holds chip_smoke.py and nothing else
         script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""
-    proc = subprocess.run([sys.executable, str(script)], cwd=script.parent,
-                          env=env, capture_output=True, text=True,
-                          timeout=120)
+    return subprocess.run([sys.executable, str(script), *args],
+                          cwd=script.parent, env=env, capture_output=True,
+                          text=True, timeout=120)
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    proc = _run_without_a_card(tmp_path, alone)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_kernels_run_fails_without_a_card(tmp_path, alone):
+    proc = _run_without_a_card(tmp_path, alone, "--kernels")
+    assert proc.returncode != 0
+    assert "== 1" not in proc.stdout
+
+
+def test_chip_smoke_refuses_unknown_arguments(capsys):
+    assert _chip_smoke().main(["--phases", "2"]) == 2
+    assert "usage" in capsys.readouterr().err
