@@ -2,11 +2,12 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py             # from the repository root, one card
-    python3 chip_smoke.py --kernels   # phases 1, 3, 5 and 19 only
+    python3 chip_smoke.py --kernels   # phases 1, 3, 5, the WKV time, 19
 
-``--kernels`` compares two trees' CNN kernel times and every kernel's bits
-in one call: copy this script into the other tree's root and run it there
-too (it imports the ``src/`` beside it).  It prints no result lines.
+``--kernels`` compares two trees' CNN kernel times, the WKV kernel's time
+at the rwkv6-1.6b scoring shape and every kernel's bits in one call: copy
+this script into the other tree's root and run it there too (it imports
+the ``src/`` beside it).  It prints no result lines.
 
 Phases (every failure raises and exits non-zero; no phase catches its own):
 
@@ -26,7 +27,8 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
    and K = H = W = 12, Cin 1 and 6, Cout 7, 33 and 100, an M' that no dw
    slice divides, and B=130, where dx tiles span two pixels; for the FC
    forward every Din of 1, 17, 900 and 4096 with every Dout of 1, 7, 10
-   and 150 and B of 1, 8 and 257, with and without bias and tanh; for the
+   and 150 and B of 1, 8 and 257, with and without bias and tanh, and the
+   FC backward at the same 48 shapes with and without y; for the
    pool backward C of 1, 3, 5 and 10 (its scalar instance) and 20, 60 and
    100 (its vector instance) at k=3 with H != W and cropped tails, B=1,
    all-tied windows, and an x 4 bytes off a 16-byte boundary, which must
@@ -117,8 +119,10 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
 14. WKV parity: the WKV kernel against its plain version on the card at
     the rwkv6-1.6b scoring shape (B=4, T=2048, H=32, D=64; bf16 r/k/v/u,
     f32 w through the model's decay parameterisation, f32 out) and at edge
-    shapes (one chunk, T=32 with chunk 32, chunk 32 over T=256, D=16 and
-    32, B·H=3, all f32, ``out_dtype=None``, every decay at the clamp, u=0).
+    shapes (one chunk, T=32 with chunk 32, chunk 32 over T=256, chunk 16,
+    64 chunks (T=4096), D=16 and 32, D=18 with chunk 48, B·H=3, 105 chunk
+    tasks with chunk 32, all f32, ``out_dtype=None``, every decay at the
+    clamp, u=0), and a second call of each bit-identical to the first.
 15. RWKV-6 scoring: rwkv6-1.6b at full width and depth (1.48 B bf16
     params from ``torch.Generator("cuda").manual_seed(0)``) through
     ``get_ops(...).loss`` under ``torch.no_grad()`` on
@@ -134,7 +138,10 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
     batch; the chunked prefill against the token scan on ragged prompts
     (next-token logits, the WKV state).
 17. RWKV-6 times: the WKV kernel per call at the scoring shape against its
-    plain version and its bound, the scoring forward per batch and
+    plain version and its bound, with its device time per call and per
+    device kernel by torch.profiler (``--kernels`` times it too, without
+    the plain version and without loading the model), the scoring forward
+    per batch and
     tokens/s with a torch.profiler trace, the prefill dispatch, the decode
     step against its weight-read bound with its device-busy share.
 18. Split conv backward: ``conv2d_dx`` and ``conv2d_dw`` through the
@@ -159,7 +166,11 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
     at chaos-large's three conv layers at B=256, of ``fc_fwd`` at both
     chaos-large FC layers with and without bias and tanh, of
     ``maxpool2d_bwd`` at both chaos-large pools and a tied, cropped
-    scalar-instance case, and of
+    scalar-instance case, of ``fc_bwd_fused``'s dx, dw and db at both
+    chaos-large FC layers with and without y and at B=257, Din 17, Dout 7,
+    of ``wkv6_chunked``'s y in its four dtype instances (bf16 in, f32 out
+    at the rwkv6-1.6b scoring shape; the others at (2, 256, 4, 64)) and at
+    chunk 32 and D=16, and of
     ``flash_attention_bwd``'s dq, dk and dv at the training shape (bf16)
     and one f32 case, on inputs drawn from
     ``torch.Generator("cuda").manual_seed(DIGEST_SEED)`` (the digest of the
@@ -172,11 +183,12 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
     the f32 digests of both kernels stay put.  Then the registers, stack
     and local memory (spills) and static shared memory of every compiled
     kernel instance of the library from ``cuobjdump
-    --dump-resource-usage``, failing on any instance of the conv, FC
-    forward and pool backward sources with stack; the tensor-core MMA instructions of every
-    flash forward and backward instance from ``cuobjdump -sass`` (above 0
-    in each bf16 instance, 0 in each f32 and f32-over-bf16 one; no bf16
-    instance spills; the expected number of instances of each).
+    --dump-resource-usage``, failing on any instance of the conv, FC,
+    pool backward and WKV sources with stack; the tensor-core MMA
+    instructions of every flash forward and backward instance from
+    ``cuobjdump -sass`` (above 0 in each bf16 instance, 0 in each f32 and
+    f32-over-bf16 one; no bf16 instance spills; the expected number of
+    instances of each).
 20. Result lines: ``nvidia-smi``'s name and power limit, one JSON object of
     the kernels, and last ``{"ok": true, "device": {...}}``.
 """
@@ -435,6 +447,20 @@ FC_DIGEST_CASES = [(BATCH, 900, 150, "tanh", True),
                    (BATCH, 900, 150, None, False),
                    (BATCH, 150, 10, None, True),
                    (BATCH, 150, 10, "tanh", False)]
+#: Phase 19: fc_bwd_fused's digest cases (B, Din, Dout, y given): both
+#: chaos-large FC layers at B=256 with and without y, and a ragged case.
+FC_BWD_DIGEST_CASES = [(BATCH, 900, 150, True), (BATCH, 900, 150, False),
+                       (BATCH, 150, 10, True), (BATCH, 150, 10, False),
+                       (257, 17, 7, True)]
+#: Phase 19: wkv6_chunked's digest cases (label, B, T, H, D, chunk, r/k/v/u
+#: dtype, out dtype): the four dtype instances, then chunk 32 and D=16.
+WKV_DIGEST_CASES = [
+    ("rwkv6-1.6b scoring", 4, 2048, 32, 64, 64, "bf16", "f32"),
+    ("f32 in, f32 out", 2, 256, 4, 64, 64, "f32", "f32"),
+    ("f32 in, bf16 out", 2, 256, 4, 64, 64, "f32", "bf16"),
+    ("bf16 in, bf16 out", 2, 256, 4, 64, 64, "bf16", "bf16"),
+    ("chunk=32", 2, 256, 4, 64, 32, "bf16", "f32"),
+    ("D=16", 2, 256, 4, 16, 64, "bf16", "f32")]
 #: Phase 19: maxpool2d_bwd's digest cases ((B, H, W, C), k, inputs): both
 #: chaos-large pools at B=256, and saturated tanh inputs (tied maxima) with
 #: C = 10 (the scalar instance) and a cropped tail.
@@ -452,7 +478,8 @@ PROFILE_TRIES = 3
 #: Phase 19 fails on an instance of these sources with stack (the mangled
 #: anonymous namespace carries the file name): the kernels redesigned for
 #: the H100 on CUDA cores.
-NO_STACK_SOURCES = ("conv2d", "conv2d_bwd", "fc", "pool_bwd")
+NO_STACK_SOURCES = ("conv2d", "conv2d_bwd", "fc", "pool_bwd", "fc_bwd",
+                    "wkv6")
 #: Phase 19: the flash backward's digest cases, (label, B, T, Hq, Hkv, D,
 #: dtype, causal): the training shape in bf16 (the tensor-core instances)
 #: and one f32 case (the CUDA-core instances, whose bits stay put).
@@ -505,6 +532,16 @@ def fc_edge_cases() -> list:
     combos = itertools.product(FC_EDGE_DIN, FC_EDGE_DOUT, FC_EDGE_B)
     return [(B, Din, Dout, *FC_EDGE_FORMS[i % len(FC_EDGE_FORMS)])
             for i, (Din, Dout, B) in enumerate(combos)]
+
+
+def fc_bwd_edge_cases() -> list:
+    """(B, Din, Dout, y given) of fc_bwd_fused's phase-2 cases: chaos-large's
+    two FC layers at B=256, chaos-small's shape, then every (Din, Dout, B)
+    of fc_fwd's edges with and without y."""
+    return [(BATCH, 900, 150, True), (BATCH, 150, 10, False),
+            (3, 37, 19, True)] + [
+        (B, Din, Dout, tanh) for Din, Dout, B in itertools.product(
+            FC_EDGE_DIN, FC_EDGE_DOUT, FC_EDGE_B) for tanh in (True, False)]
 
 
 def misaligned(torch, x):
@@ -618,9 +655,7 @@ def parity_cases(torch, K, P, FC):
                       lambda x=x, y=y, dy=dy, k=k: P.maxpool2d_bwd(x, y, dy, k),
                       lambda x=x, y=y, dy=dy, k=k:
                       P.maxpool2d_bwd_plain(x, y, dy, k), 4 if vec else 1))
-    for (B, Din, Dout, tanh) in [(BATCH, 900, 150, True),
-                                 (BATCH, 150, 10, False),
-                                 (3, 37, 19, True)]:
+    for (B, Din, Dout, tanh) in fc_bwd_edge_cases():
         x = u(B, Din)
         w = n(Din, Dout, scale=1 / math.sqrt(Din))
         y = u(B, Dout) if tanh else None
@@ -2162,9 +2197,13 @@ WKV_CASES = [
     ("T=32, chunk=32", 2, 32, 4, 64, 32, "bf16", "f32", "model", False),
     ("chunk=32 over T=256", 2, 256, 4, 64, 32, "bf16", "f32", "model",
      False),
+    ("chunk=16", 2, 256, 4, 64, 16, "bf16", "f32", "model", False),
+    ("64 chunks, T=4096", 1, 4096, 2, 64, 64, "bf16", "f32", "model", False),
     ("D=16", 2, 256, 4, 16, 64, "bf16", "f32", "model", False),
     ("D=32", 2, 256, 4, 32, 64, "bf16", "f32", "model", False),
+    ("D=18, chunk=48", 2, 240, 3, 18, 48, "f32", "f32", "model", False),
     ("B*H=3", 1, 256, 3, 64, 64, "bf16", "f32", "model", False),
+    ("B*H*(T/Q)=105", 3, 224, 5, 64, 32, "bf16", "f32", "model", False),
     ("all f32", 2, 256, 4, 64, 64, "f32", "f32", "model", False),
     ("out_dtype=None (bf16)", 2, 256, 4, 64, 64, "bf16", None, "model",
      False),
@@ -2200,10 +2239,16 @@ def check_wkv_parity(torch, W) -> float:
         args = wkv_inputs(torch, g, B, T, H, D, dts[dt], decay, u_zero)
         kw = dict(chunk=chunk, out_dtype=dts[out])
         got = W.wkv6_chunked(*args, **kw)
+        again = W.wkv6_chunked(*args, **kw)
         want = W.wkv6_chunked_plain(*args, **kw)
         torch.cuda.synchronize()
         shape = (f"(B, T, H, D)=({B}, {T}, {H}, {D}) chunk={chunk} {dt} in, "
                  f"{str(got.dtype)[6:]} out")
+        if not torch.equal(got.view(torch.int16 if got.dtype ==
+                                    torch.bfloat16 else torch.int32),
+                           again.view(torch.int16 if got.dtype ==
+                                      torch.bfloat16 else torch.int32)):
+            raise AssertionError(f"wkv {label}: two calls differ")
         if got.shape != want.shape or got.dtype != want.dtype:
             raise AssertionError(f"wkv {label}: {got.shape} {got.dtype} vs "
                                  f"plain {want.shape} {want.dtype}")
@@ -2224,7 +2269,8 @@ def check_wkv_parity(torch, W) -> float:
                 f"{want[tuple(i)].item()!r}")
         worst = max(worst, diff.max().item())
         print(f"parity wkv6_chunked {label} {shape}: max_abs_err="
-              f"{diff.max().item():.3e} (within {tol})", flush=True)
+              f"{diff.max().item():.3e} (within {tol}); second call "
+              f"bit-identical", flush=True)
     return worst
 
 
@@ -2452,16 +2498,24 @@ def wkv_work(B, T, H, D, Q, in_bytes=2):
             3 * n * in_bytes + 2 * n * 4 + H * D * in_bytes)
 
 
-def rwkv_times(torch, W, scoring, serving):
-    cfg, ops, params = scoring["cfg"], scoring["ops"], scoring["params"]
+def wkv_kernel_times(torch, W, plain: bool) -> dict:
+    """The WKV kernel per call at the rwkv6-1.6b scoring shape (B=4,
+    T=2048, H=32, D=64, chunk 64; bf16 r/k/v/u, f32 w and y), without the
+    model's weights: CUDA events (against the plain version when
+    ``plain``), device time per call and per device kernel by
+    torch.profiler, and the bound."""
+    from repro_torch.configs import get
+
+    cfg = get(RWKV)
     B, T = RWKV_DATA["batch"], RWKV_DATA["seq_len"]
     H, D, Q = cfg.n_heads, cfg.d_head, 64
     g = torch.Generator(device="cuda").manual_seed(77)
     args = wkv_inputs(torch, g, B, T, H, D, torch.bfloat16)
     kw = dict(chunk=Q, out_dtype=torch.float32)
-    t = time_turns(torch, {
-        "ms": lambda: W.wkv6_chunked(*args, **kw),
-        "plain_ms": lambda: W.wkv6_chunked_plain(*args, **kw)}, inner=5)
+    fns = {"ms": lambda: W.wkv6_chunked(*args, **kw)}
+    if plain:
+        fns["plain_ms"] = lambda: W.wkv6_chunked_plain(*args, **kw)
+    t = time_turns(torch, fns, inner=5)
     n_ops, n_bytes = wkv_work(B, T, H, D, Q)
     row = dict(t, library_ms=None)
     row["ops_ms"] = n_ops / PEAK_FP32 * 1e3
@@ -2471,14 +2525,38 @@ def rwkv_times(torch, W, scoring, serving):
             f"r/k/v/u, f32 w and y, CUDA events, median of 21 x 5 calls")
     print(f"time wkv6_chunked kernel {what}: {row['ms']:.6f} ms "
           f"({n_ops / (row['ms'] * 1e-3) / 1e12:.3f} TFLOP/s)", flush=True)
-    print(f"time wkv6_chunked plain version {what}: {row['plain_ms']:.6f} ms;"
-          f" no single PyTorch call computes the WKV recurrence (library: "
-          f"none)", flush=True)
+    if plain:
+        print(f"time wkv6_chunked plain version {what}: "
+              f"{row['plain_ms']:.6f} ms; no single PyTorch call computes the "
+              f"WKV recurrence (library: none)", flush=True)
+    prof = None
+    for _ in range(PROFILE_TRIES):  # a trace must hold every launch
+        prof = profile_steps(torch, fns["ms"], steps=PROFILE_CALLS)
+        if prof is not None and min(prof[3].values()) > 1 - 1e-6:
+            break
+        prof = None
+    row["device_ms"] = None if prof is None else sum(
+        ms for _, ms in prof[1])
+    print("device wkv6_chunked per call at the scoring shape: " + (
+        f"not measured (no trace of {PROFILE_TRIES} held every launch of "
+        f"the {PROFILE_CALLS} calls)"
+        if prof is None else
+        f"{row['device_ms']:.6f} ms (torch.profiler, {PROFILE_CALLS} calls; "
+        f"{prof[2]:.0f} device kernels a call: " + "; ".join(
+            f"{name[:70]} {ms:.6f}" for name, ms in prof[1]) + ")"),
+        flush=True)
     print(f"bound wkv6_chunked per call: {row['bound_ms']:.6f} ms by "
           f"{'operations' if row['ops_ms'] >= row['bytes_ms'] else 'bytes'} "
           f"({n_ops:.4g} ops at 67 TFLOP/s f32 = {row['ops_ms']:.6f} ms; "
           f"{n_bytes:.4g} bytes at 3.35 TB/s = {row['bytes_ms']:.6f} ms)",
           flush=True)
+    return row
+
+
+def rwkv_times(torch, W, scoring, serving):
+    cfg, ops, params = scoring["cfg"], scoring["ops"], scoring["params"]
+    B, T = RWKV_DATA["batch"], RWKV_DATA["seq_len"]
+    row = wkv_kernel_times(torch, W, plain=True)
 
     batch = scoring["batch"]
     with torch.no_grad():
@@ -2917,6 +2995,47 @@ def pool_bwd_bits(torch, P) -> None:
               flush=True)
 
 
+def fc_bwd_bits(torch, FC) -> None:
+    """Digests of ``fc_bwd_fused``'s dx, dw and db at FC_BWD_DIGEST_CASES,
+    on x, dy, w and y from a CUDA generator; two runs of each equal."""
+    g = torch.Generator(device="cuda").manual_seed(DIGEST_SEED)
+    for B, Din, Dout, tanh in FC_BWD_DIGEST_CASES:
+        x = torch.rand((B, Din), generator=g, device="cuda") * 2 - 1
+        w = torch.randn((Din, Dout), generator=g, device="cuda") \
+            / math.sqrt(Din)
+        dy = torch.randn((B, Dout), generator=g, device="cuda")
+        y = (torch.rand((B, Dout), generator=g, device="cuda") * 2 - 1
+             if tanh else None)
+        first, second = (digest(torch, FC.fc_bwd_fused(x, dy, w, y))
+                         for _ in range(2))
+        if first != second:
+            raise AssertionError(f"fc_bwd_fused x{(B, Din)} w{(Din, Dout)}: "
+                                 f"two runs differ")
+        inputs = (x, dy, w) if y is None else (x, dy, w, y)
+        print(f"digest fc_bwd_fused x{(B, Din)} w{(Din, Dout)} y={tanh}: "
+              f"inputs sha256 {digest(torch, inputs)}; dx, dw, db sha256 "
+              f"{first}", flush=True)
+
+
+def wkv_bits(torch, W) -> None:
+    """Digests of ``wkv6_chunked``'s y at WKV_DIGEST_CASES, on inputs from a
+    CUDA generator (wkv_inputs); two runs of each equal."""
+    g = torch.Generator(device="cuda").manual_seed(DIGEST_SEED)
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    for label, B, T, H, D, chunk, dt, out in WKV_DIGEST_CASES:
+        args = wkv_inputs(torch, g, B, T, H, D, dts[dt])
+        kw = dict(chunk=chunk, out_dtype=dts[out])
+        first, second = (digest(torch, (W.wkv6_chunked(*args, **kw),))
+                         for _ in range(2))
+        if first != second:
+            raise AssertionError(f"wkv6_chunked {label}: two runs differ")
+        print(f"digest wkv6_chunked {label} (B, T, H, D)=({B}, {T}, {H}, "
+              f"{D}) chunk={chunk} {dt} in, {out} out: inputs r, k, v, w, u "
+              f"sha256 {digest(torch, args)}; y sha256 {first}", flush=True)
+        del args
+    torch.cuda.empty_cache()
+
+
 def flash_bwd_bits(torch, FA) -> None:
     """Digests of ``flash_attention_bwd``'s dq, dk and dv at
     FLASH_DIGEST_CASES, on q, k, v and dout from a CUDA generator (out and
@@ -3069,11 +3188,13 @@ def held_with_stack(rows: list) -> list:
             if re.search(rf"_\d+_({sources})_cu_", row[0]) and row[2]]
 
 
-def kernel_bits(torch, K, FC, P, FA, build) -> None:
+def kernel_bits(torch, K, FC, P, FA, W, build) -> None:
     """Phase 19."""
     conv_bits(torch, K, build)
     fc_bits(torch, FC)
+    fc_bwd_bits(torch, FC)
     pool_bwd_bits(torch, P)
+    wkv_bits(torch, W)
     flash_fwd_bits(torch, FA)
     flash_bwd_bits(torch, FA)
     flash_sass(build, kernel_resources(build))
@@ -3151,10 +3272,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import wkv6 as W
     if kernels_only:
+        phase("17 the WKV kernel's time at the rwkv6-1.6b scoring shape")
+        wkv_kernel_times(torch, W, plain=False)
+        torch.cuda.empty_cache()
         phase("19 kernel bits and resources")
-        kernel_bits(torch, K, FC, P, FA, build)
-        print(f"--kernels: phases 1, 3, 5 and 19 only, "
+        kernel_bits(torch, K, FC, P, FA, W, build)
+        print(f"--kernels: phases 1, 3, 5, the WKV time and 19 only, "
               f"{time.perf_counter() - t_start:.1f} s; no result lines",
               flush=True)
         return 0
@@ -3202,7 +3327,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     phase("19 kernel bits and resources")
-    kernel_bits(torch, K, FC, P, FA, build)
+    kernel_bits(torch, K, FC, P, FA, W, build)
 
     phase("20 result")
     kernels = []

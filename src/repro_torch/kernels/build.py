@@ -51,12 +51,12 @@ C_API = {
     "repro_conv2d_dw": [_P] * 4 + [_I] * 7 + [_P],
     "repro_conv2d_dw_scratch": [_I] * 7,
     "repro_maxpool2d_bwd": [_P] * 4 + [_I] * 5 + [_P],
-    "repro_fc_bwd": [_P] * 7 + [_I] * 3 + [_P],
+    "repro_fc_bwd": [_P] * 8 + [_I] * 3 + [_P],
     "repro_flash_attention_fwd": [_P] * 5 + [_I] * 10 + [_F] + [_L] * 12
     + [_P],
     "repro_flash_attention_bwd": [_P] * 10 + [_I] * 8 + [_F] + [_L] * 15
     + [_P],
-    "repro_wkv6_fwd": [_P] * 6 + [_I] * 8 + [_L] * 15 + [_P],
+    "repro_wkv6_fwd": [_P] * 7 + [_I] * 8 + [_L] * 15 + [_P],
 }
 
 

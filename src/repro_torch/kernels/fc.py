@@ -2,9 +2,11 @@
 
 ``fc_fwd``           y = act(x @ w + b), fp32, bias and optional tanh in the
                      epilogue; replaces ``repro.kernels.fc.fc_fwd``.
-``fc_bwd_fused``     (dx, dw, db) of ``fc_fwd`` from one launch, the tanh
-                     derivative fused when the forward output is given;
-                     replaces ``repro.kernels.fc.fc_bwd_fused``.
+``fc_bwd_fused``     (dx, dw, db) of ``fc_fwd`` from one call, the tanh
+                     derivative fused when the forward output is given (a
+                     dz kernel into a workspace, then one launch of the dw,
+                     db and dx GEMMs); replaces
+                     ``repro.kernels.fc.fc_bwd_fused``.
 ``softmax_xent_fwd`` per-sample CE loss and dlogits = softmax - onehot from
                      one pass; replaces ``repro.kernels.fc.softmax_xent_fwd``.
                      dlogits is returned because ``kernels/ops.py`` saves it
@@ -77,8 +79,10 @@ def fc_bwd_fused(x, dy, w, y=None):
     dx = torch.empty_like(x)
     dw = torch.empty_like(w)
     db = torch.empty((Dout,), dtype=torch.float32, device=x.device)
-    build.launch("repro_fc_bwd", x.device, x, dy, y, w, dx, dw, db, B, Din,
-                 Dout)
+    # the kernel's dz = dy * (1 - y^2), computed once; without y it reads dy
+    dz = None if y is None else torch.empty_like(dy)
+    build.launch("repro_fc_bwd", x.device, x, dy, y, w, dx, dw, db, dz, B,
+                 Din, Dout)
     record_launch(fc_bwd_fused)
     return dx, dw, db
 

@@ -4,9 +4,11 @@
 wkv6_chunked`` (``_wkv_kernel``): the WKV recurrence in chunked form, a
 ``(D, D)`` f32 state carried across chunks of ``chunk`` tokens and
 starting at zero, no final state returned.  On a CUDA tensor it launches
-``csrc/wkv6.cu`` once per call (or raises); on a CPU tensor it runs
-``wkv6_chunked_plain``.  ``wkv_plain``, the plain form with an initial and
-a final state, is also the model's stateful chunked WKV.
+``csrc/wkv6.cu`` once per call (or raises): three device kernels, chunk-
+parallel, through an f32 workspace from torch's caching allocator (see
+``workspace_size``); on a CPU tensor it runs ``wkv6_chunked_plain``.
+``wkv_plain``, the plain form with an initial and a final state, is also
+the model's stateful chunked WKV.
 
 The kernel reads r, k, v and w in their ``(B, T, H, D)`` layout through
 their strides: the TPU wrapper's transpose to ``(B, H, T, D)`` exists for
@@ -68,6 +70,13 @@ def wkv_plain(r, k, v, w, u, *, chunk: int = 64, initial_state=None):
     return torch.cat(ys, dim=2).transpose(1, 2), S
 
 
+def workspace_size(B: int, T: int, H: int, D: int, chunk: int) -> int:
+    """f32 entries of the kernel's workspace: each chunk's (D, D) state
+    contribution, overwritten by the state before the chunk, then each
+    chunk's (D,) decay e^{seg_last}."""
+    return B * H * (T // chunk) * D * (D + 1)
+
+
 def wkv6_chunked_plain(r, k, v, w, u, *, chunk: int = 64, out_dtype=None):
     """The kernel's plain version: ``wkv_plain`` from a zero state, ``y``
     cast to ``out_dtype`` (None: r's dtype)."""
@@ -114,11 +123,13 @@ def wkv6_chunked(r, k, v, w, u, *, chunk: int = 64, out_dtype=None):
     build.check("w", w, torch.float32, (B, T, H, D), r.device, align=4)
     build.check("u", u, u.dtype, (H, D), r.device)
     out = torch.empty((B, T, H, D), dtype=out_dtype, device=r.device)
+    ws = torch.empty(workspace_size(B, T, H, D, chunk), dtype=torch.float32,
+                     device=r.device)
 
     def bth(t):  # (b, t, h) strides of a (B, T, H, D) tensor
         return t.stride()[:3]
 
-    build.launch("repro_wkv6_fwd", r.device, r, k, v, w, u, out,
+    build.launch("repro_wkv6_fwd", r.device, r, k, v, w, u, out, ws,
                  _DTYPE_CODES[r.dtype], _DTYPE_CODES[u.dtype],
                  _DTYPE_CODES[out_dtype], B, T, H, D, chunk, *bth(r),
                  *bth(k), *bth(v), *bth(w), *bth(out))

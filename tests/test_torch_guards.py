@@ -220,21 +220,24 @@ def test_chip_smoke_finds_conv_instances_with_stack():
     assert smoke.held_with_stack([flash, rows[0]]) == []
 
 
-#: Mangled names of instances of the FC and pool sources: the redesigned
-#: fc.cu and pool_bwd.cu are held to no stack, fc_bwd.cu and pool.cu not.
+#: Mangled names of instances of the FC, pool and WKV sources: the
+#: redesigned fc.cu, pool_bwd.cu, fc_bwd.cu and wkv6.cu are held to no
+#: stack, pool.cu not.
 STACK_NAMES = [
     ("_ZN42_GLOBAL__N__0b1c2d3e_5_fc_cu_4f5e6d7c13fc_fwd_kernelEPKfS1_S1_"
      "Pfiiii", True),
     ("_ZN48_GLOBAL__N__0b1c2d3e_11_pool_bwd_cu_4f5e6d7c20maxpool2d_bwd_"
      "kernelILi4EEEvPKfS2_S2_Pfiiiiiii", True),
     ("_ZN46_GLOBAL__N__0b1c2d3e_9_fc_bwd_cu_4f5e6d7c13fc_bwd_kernelEv",
-     False),
+     True),
     ("_ZN44_GLOBAL__N__0b1c2d3e_7_pool_cu_4f5e6d7c20maxpool2d_fwd_kernelEv",
-     False)]
+     False),
+    ("_ZN44_GLOBAL__N__0b1c2d3e_7_wkv6_cu_4f5e6d7c21wkv6_chunk_out_kernelI"
+     "13__nv_bfloat16fEEvNS_4ArgsE", True)]
 
 
 @pytest.mark.parametrize("name,held", STACK_NAMES,
-                         ids=["fc", "pool_bwd", "fc_bwd", "pool"])
+                         ids=["fc", "pool_bwd", "fc_bwd", "pool", "wkv6"])
 def test_chip_smoke_holds_the_fc_forward_and_pool_backward_to_no_stack(
         name, held):
     smoke = _chip_smoke()
@@ -284,6 +287,46 @@ def test_chip_smoke_fc_edge_cases_cover_every_shape_and_form():
     for Din in (1, 17, 900, 4096):
         assert {(a, b) for _, d, _, a, b in cases if d == Din} == {
             ("tanh", True), (None, True), ("tanh", False), (None, False)}
+
+
+def test_chip_smoke_fc_backward_edges_cover_every_shape_with_and_without_y():
+    """Phase 2's fc_bwd_fused cases: chaos-large's two layers at B=256, then
+    every (Din, Dout, B) of the FC edges, each with and without y."""
+    cases = _chip_smoke().fc_bwd_edge_cases()
+    assert cases[:2] == [(256, 900, 150, True), (256, 150, 10, False)]
+    assert sorted(cases[3:]) == sorted(
+        (B, Din, Dout, tanh) for Din in (1, 17, 900, 4096)
+        for Dout in (1, 7, 10, 150) for B in (1, 8, 257)
+        for tanh in (True, False))
+
+
+def test_chip_smoke_digests_every_fc_backward_and_wkv_instance():
+    """Phase 19 digests fc_bwd_fused at both chaos-large layers with and
+    without y and a ragged case, and wkv6_chunked in its four dtype
+    instances (bf16 -> f32 at the scoring shape), at chunk 32 and D=16."""
+    smoke = _chip_smoke()
+    assert {(B, Din, Dout) for B, Din, Dout, _ in
+            smoke.FC_BWD_DIGEST_CASES} == {(256, 900, 150), (256, 150, 10),
+                                            (257, 17, 7)}
+    assert {t for *_, t in smoke.FC_BWD_DIGEST_CASES} == {True, False}
+    wkv = smoke.WKV_DIGEST_CASES
+    assert {(dt, out) for *_, dt, out in wkv} == {
+        ("bf16", "f32"), ("f32", "f32"), ("f32", "bf16"), ("bf16", "bf16")}
+    assert wkv[0][1:] == (4, 2048, 32, 64, 64, "bf16", "f32")
+    assert {c[5] for c in wkv} == {32, 64} and {c[4] for c in wkv} == {16,
+                                                                        64}
+    assert {"fc_bwd", "wkv6"} <= set(smoke.NO_STACK_SOURCES)
+
+
+def test_chip_smoke_wkv_edges_reach_short_chunks_long_walks_and_odd_grids():
+    """Phase 14 holds chunk 16, 64 chunks, a D no multiple of 4 and a
+    B·H·(T/Q) that no block count divides."""
+    cases = _chip_smoke().WKV_CASES
+    assert any(c[5] == 16 for c in cases)
+    assert any(c[2] // c[5] == 64 for c in cases)
+    assert any(c[4] % 4 for c in cases)
+    tasks = [c[1] * c[3] * (c[2] // c[5]) for c in cases]
+    assert any(n % 2 and n % 3 == 0 and n > 100 for n in tasks)
 
 
 def test_chip_smoke_pool_backward_edges_reach_both_instances():
