@@ -28,13 +28,15 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
    slice divides, and B=130, where dx tiles span two pixels; for the FC
    forward every Din of 1, 17, 900 and 4096 with every Dout of 1, 7, 10
    and 150 and B of 1, 8 and 257, with and without bias and tanh, and the
-   FC backward at the same 48 shapes with and without y; for the
-   pool backward C of 1, 3, 5 and 10 (its scalar instance) and 20, 60 and
-   100 (its vector instance) at k=3 with H != W and cropped tails, B=1,
+   FC backward at the same 48 shapes with and without y; for both pool
+   kernels C of 1, 3, 5 and 10 (their scalar instances) and 20, 60 and
+   100 (their vector instances) at k=3 with H != W and cropped tails, B=1,
    all-tied windows, and an x 4 bytes off a 16-byte boundary, which must
-   take the scalar instance; each pool backward case prints the instance
-   it ran by torch.profiler), and a second call of each bit-identical to
-   the first.
+   take the scalar instance; for softmax-xent rows of 1, 10, 16, 17, 31,
+   32, 33 and 40 classes, B of 3 to 9 and 257, and labels outside [0, C)
+   at both kernels; each pool and softmax-xent case prints the
+   device kernel it ran by torch.profiler, held to the one its shape and
+   pointers pick), and a second call of each bit-identical to the first.
 3. The eval path: chaos-large evaluated through ``get_ops(...).loss`` on
    ``cuda`` over 8 shared-queue batches of 256, with every launch count set
    to 0 just before and read just after (exactly 3 conv + 2 pool + 2 fc +
@@ -58,8 +60,12 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
    what the caller waits to enqueue one); the
    eval time per batch, the optimizer's time and the training step's time
    at B=8 and B=256; for each conv layer the fused backward's ms and
-   TFLOP/s beside the library pair's.  The CNN phases then free their
-   memory.
+   TFLOP/s beside the library pair's; the pool forward's device time at
+   each of its two shapes beside that shape's bound, with its input read
+   from DRAM (EVICT_BYTES read before each call evict it from the L2) and
+   warm (left in the L2 by the call before), and the softmax-xent
+   kernel's beside the device time of a one-element ``fill_`` (the floor
+   of a launch).  The CNN phases then free their memory.
 6. Flash parity: the flash-attention kernel against its plain version on
    the card at qwen3-14b's prefill shapes (4 prompts of 1024 over a 2048
    cache, Hq 40 over Hkv 8, D=128, bf16, q and the cache as the strided
@@ -166,9 +172,13 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
     at chaos-large's three conv layers at B=256, of ``fc_fwd`` at both
     chaos-large FC layers with and without bias and tanh, of
     ``maxpool2d_bwd`` at both chaos-large pools and a tied, cropped
-    scalar-instance case, of ``fc_bwd_fused``'s dx, dw and db at both
-    chaos-large FC layers with and without y and at B=257, Din 17, Dout 7,
-    of ``wkv6_chunked``'s y in its four dtype instances (bf16 in, f32 out
+    scalar-instance case, of ``maxpool2d_fwd`` at the same three and on
+    inputs holding NaN, +0, -0 and infinities at both instances, of
+    ``softmax_xent_fwd``'s loss and dlogits at (256, 10), (3, 10) and (5,
+    40), with labels outside [0, C), at 31 classes, and on logits holding
+    NaN, +-0 and infinities at each instance, of ``fc_bwd_fused``'s dx,
+    dw and db at both chaos-large FC layers with and without y and at
+    B=257, Din 17, Dout 7, of ``wkv6_chunked``'s y in its four dtype instances (bf16 in, f32 out
     at the rwkv6-1.6b scoring shape; the others at (2, 256, 4, 64)) and at
     chunk 32 and D=16, and of
     ``flash_attention_bwd``'s dq, dk and dv at the training shape (bf16)
@@ -184,7 +194,7 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
     and local memory (spills) and static shared memory of every compiled
     kernel instance of the library from ``cuobjdump
     --dump-resource-usage``, failing on any instance of the conv, FC,
-    pool backward and WKV sources with stack; the tensor-core MMA
+    pool, softmax-xent and WKV sources with stack; the tensor-core MMA
     instructions of every flash forward and backward instance from
     ``cuobjdump -sass`` (above 0 in each bf16 instance, 0 in each f32 and
     f32-over-bf16 one; no bf16 instance spills; the expected number of
@@ -425,13 +435,14 @@ FC_EDGE_DOUT = (1, 7, 10, 150)
 FC_EDGE_B = (1, 8, 257)
 FC_EDGE_FORMS = (("tanh", True), (None, True), ("tanh", False),
                  (None, False))
-#: maxpool2d_bwd's edge cases ((B, H, W, C), k, inputs, x's data pointer
-#: 4 bytes off a 16-byte boundary): C of the scalar instance (1, 3, 5, 10)
-#: and of the vector one (20, 60, 100) at k = 3 with H != W and both tails
-#: cropped, on saturated tanh (tied maxima); B=1 with a cropped column and
-#: with a cropped row and column; all-tied windows of ones at both
-#: instances; and a misaligned x, which must take the scalar instance.
-POOL_BWD_EDGES = (
+#: The pool kernels' edge cases, forward and backward ((B, H, W, C), k,
+#: inputs, x's data pointer 4 bytes off a 16-byte boundary): C of the
+#: scalar instances (1, 3, 5, 10) and of the vector ones (20, 60, 100) at
+#: k = 3 with H != W and both tails cropped, on saturated tanh (tied
+#: maxima); B=1 with a cropped column and with a cropped row and column;
+#: all-tied windows of ones at both instances; and a misaligned x, which
+#: must take the scalar instance.
+POOL_EDGES = (
     [((2, 11, 8, c), 3, "saturated", False) for c in (1, 3, 5, 10)]
     + [((2, 11, 8, c), 3, "saturated", False) for c in (20, 60, 100)]
     + [((1, 8, 13, 60), 2, "uniform", False),
@@ -467,6 +478,30 @@ WKV_DIGEST_CASES = [
 POOL_DIGEST_CASES = [((BATCH, 22, 22, 60), 2, "uniform"),
                      ((BATCH, 6, 6, 100), 2, "uniform"),
                      ((BATCH, 7, 7, 10), 3, "saturated")]
+#: softmax_xent_fwd's phase-2 cases (B, C, labels): chaos-large's (256,
+#: 10); a row of 1 and 16 classes (the lanes kernel's widest) and of 17,
+#: 31, 32, 33 and 40 (the warp per row past 16); B of 3, 5, 7, 9 and 257,
+#: no multiple of the lanes kernel's 4 rows a block or of the warp
+#: kernel's 8; labels -1 and C (outside [0, C)) mixed into the batch at
+#: both kernels.
+SOFTMAX_EDGES = [(BATCH, 10, "in"), (3, 10, "in"), (5, 40, "in"),
+                 (7, 1, "in"), (5, 16, "in"), (9, 17, "in"), (9, 31, "in"),
+                 (8, 32, "in"), (7, 33, "in"), (257, 10, "in"),
+                 (BATCH, 10, "outside"), (7, 31, "outside"),
+                 (65, 33, "outside")]
+#: Phase 19: maxpool2d_fwd's digest cases: the pool backward's, and
+#: inputs holding NaN, +0, -0, infinities and tied halves at both
+#: instances.
+POOL_FWD_DIGEST_CASES = POOL_DIGEST_CASES + [((16, 9, 8, 12), 2, "special"),
+                                             ((16, 10, 10, 5), 3, "special")]
+#: Phase 19: softmax_xent_fwd's digest cases (B, C, logits): chaos-large's
+#: (256, 10), (3, 10) and (5, 40) as phase 2 draws them, labels outside
+#: [0, C), and rows of 31 classes, each instance also on logits holding
+#: NaN, +-0 and infinities.
+SOFTMAX_DIGEST_CASES = [(BATCH, 10, "normal"), (3, 10, "normal"),
+                        (5, 40, "normal"), (BATCH, 10, "outside"),
+                        (37, 31, "normal"), (64, 10, "special"),
+                        (37, 20, "special"), (37, 33, "special")]
 #: Phase 5: calls of each kernel and of its library call in one
 #: torch.profiler trace (device time per call), and calls of each around
 #: the host clock with no synchronize between them (host time per call).
@@ -475,11 +510,15 @@ HOST_CALLS = 200
 #: Traces taken before a profiler reading is given up: now and then a trace
 #: of a few short kernels holds no device events.
 PROFILE_TRIES = 3
+#: Phase 5: bytes read before each timed call of the pool forward, five
+#: times the H100's 50 MB L2, so that the call reads its input from DRAM,
+#: where the bound's memory rate holds.
+EVICT_BYTES = 256 * 2**20
 #: Phase 19 fails on an instance of these sources with stack (the mangled
 #: anonymous namespace carries the file name): the kernels redesigned for
 #: the H100 on CUDA cores.
 NO_STACK_SOURCES = ("conv2d", "conv2d_bwd", "fc", "pool_bwd", "fc_bwd",
-                    "wkv6")
+                    "wkv6", "pool", "softmax_xent")
 #: Phase 19: the flash backward's digest cases, (label, B, T, Hq, Hkv, D,
 #: dtype, causal): the training shape in bf16 (the tensor-core instances)
 #: and one f32 case (the CUDA-core instances, whose bits stay put).
@@ -552,12 +591,35 @@ def misaligned(torch, x):
     return out
 
 
-def pool_bwd_instances(names) -> list:
-    """Channels a thread of each maxpool2d_bwd instance among device kernel
-    names, demangled (``maxpool2d_bwd_kernel<4>``) or not (``ILi4E``)."""
-    found = (re.search(r"maxpool2d_bwd_kernel(?:<(\d+)>|ILi(\d+)E)", name)
-             for name in names)
-    return [int(m.group(1) or m.group(2)) for m in found if m]
+def kernel_instances(names, kernel: str) -> list:
+    """The integer template arguments of each instance of ``kernel`` among
+    device kernel names, demangled (``kernel<4, 2>``) or not
+    (``kernelILi4ELi2EE``); () for a kernel that is no template."""
+    out = []
+    for name in names:
+        m = re.search(rf"{kernel}(?:<([^>]*)>|I((?:Li\d+E)+)E)?", name)
+        if m:
+            args = m.group(1) or m.group(2) or ""
+            out.append(tuple(int(a) for a in re.findall(r"\d+", args)))
+    return out
+
+
+def pool_instance(kernel: str, x, k=None) -> tuple:
+    """The (device kernel, template arguments) a pool kernel must run on
+    ``x``: 4 channels a thread where C % 4 == 0 and x lies on a 16-byte
+    boundary (every other tensor is fresh), else 1; for the forward also
+    the window fixed at compile time (2) or taken at run time (0)."""
+    v = 4 if x.shape[3] % 4 == 0 and x.data_ptr() % 16 == 0 else 1
+    return (kernel, (v,) if k is None else (v, 2 if k == 2 else 0))
+
+
+def softmax_instance(C: int) -> tuple:
+    """The (device kernel, template arguments) softmax_xent_fwd must run
+    for C classes: a lane per class, 16 lanes a row, for C <= 16; a warp
+    per row, its lanes striding over the classes, past 16."""
+    if C > 16:
+        return ("softmax_xent_warp_kernel", ())
+    return ("softmax_xent_lanes_kernel", ())
 
 
 def traced_kernels(torch, fn) -> list:
@@ -574,9 +636,9 @@ def traced_kernels(torch, fn) -> list:
 
 def parity_cases(torch, K, P, FC):
     """(kernel name, label, kernel call, plain call) at the main path's
-    shapes and edge shapes, on the card; a maxpool2d_bwd case also names
-    the channels a thread of the instance it must run (4 where C % 4 == 0
-    and every pointer is 16-byte aligned, else 1)."""
+    shapes and edge shapes, on the card; a pool or softmax case also names
+    the device kernel and template arguments it must run (pool_instance,
+    softmax_instance)."""
     g = torch.Generator().manual_seed(1234)
 
     def u(*shape):  # activations in [-1, 1], as tanh leaves them
@@ -595,14 +657,21 @@ def parity_cases(torch, K, P, FC):
                       lambda x=x, w=w, b=b, a=act: K.conv2d_fwd(x, w, b, a),
                       lambda x=x, w=w, b=b, a=act:
                       K.conv2d_fwd_plain(x, w, b, a)))
-    for (x, k, what) in [(u(BATCH, 22, 22, 60), 2, "chaos-large pool3"),
-                         (u(BATCH, 6, 6, 100), 2, "chaos-large pool5"),
-                         (u(3, 7, 7, 5), 2, "cropped tail"),
-                         (torch.tanh(n(4, 9, 9, 10, scale=20.0)), 3,
-                          "tied maxima")]:
+    pool_inputs = {"uniform": u, "ones": lambda *s: torch.ones(s).cuda(),
+                   "saturated": lambda *s: torch.tanh(n(*s, scale=20.0))}
+    pools = [(u(BATCH, 22, 22, 60), 2, "chaos-large pool3"),
+             (u(BATCH, 6, 6, 100), 2, "chaos-large pool5"),
+             (u(3, 7, 7, 5), 2, "cropped tail"),
+             (torch.tanh(n(4, 9, 9, 10, scale=20.0)), 3, "tied maxima")]
+    for shape, k, kind, off in POOL_EDGES:
+        x = pool_inputs[kind](*shape)
+        pools.append((misaligned(torch, x) if off else x, k,
+                      kind + (", x 4 bytes off 16" if off else "")))
+    for (x, k, what) in pools:
         cases.append(("maxpool2d_fwd", f"{what} x{tuple(x.shape)} k={k}",
                       lambda x=x, k=k: P.maxpool2d_fwd(x, k),
-                      lambda x=x, k=k: P.maxpool2d_fwd_plain(x, k)))
+                      lambda x=x, k=k: P.maxpool2d_fwd_plain(x, k),
+                      pool_instance("maxpool2d_fwd_kernel", x, k)))
     for (B, Din, Dout, act, bias) in [(BATCH, 900, 150, "tanh", True),
                                       (BATCH, 150, 10, None, True),
                                       (3, 37, 19, "tanh", False),
@@ -615,14 +684,18 @@ def parity_cases(torch, K, P, FC):
                       lambda x=x, w=w, b=b, a=act: FC.fc_fwd(x, w, b, a),
                       lambda x=x, w=w, b=b, a=act:
                       FC.fc_fwd_plain(x, w, b, a)))
-    for (B, C) in [(BATCH, 10), (3, 10), (5, 40)]:
+    for (B, C, labels_in) in SOFTMAX_EDGES:
         logits = n(B, C, scale=2.0)
-        labels = torch.randint(0, C, (B,), generator=g,
-                               dtype=torch.int32).cuda()
-        cases.append(("softmax_xent_fwd", f"logits{(B, C)}",
+        labels = torch.randint(0, C, (B,), generator=g, dtype=torch.int32)
+        if labels_in == "outside":
+            labels[::2], labels[1::3] = -1, C
+        labels = labels.cuda()
+        cases.append(("softmax_xent_fwd", f"logits{(B, C)} labels "
+                      f"{labels_in} [0, C)",
                       lambda l=logits, y=labels: FC.softmax_xent_fwd(l, y),
                       lambda l=logits, y=labels:
-                      FC.softmax_xent_fwd_plain(l, y)))
+                      FC.softmax_xent_fwd_plain(l, y),
+                      softmax_instance(C)))
     for (B, H, Wd, Cin, Kk, Cout, tanh) in CONV_BWD_CASES:
         Ho, Wo = H - Kk + 1, Wd - Kk + 1
         x = u(B, H, Wd, Cin)
@@ -635,26 +708,16 @@ def parity_cases(torch, K, P, FC):
                       K.conv2d_bwd_fused(x, dy, w, y),
                       lambda x=x, dy=dy, w=w, y=y:
                       K.conv2d_bwd_fused_plain(x, dy, w, y)))
-    pool_inputs = {"uniform": u, "ones": lambda *s: torch.ones(s).cuda(),
-                   "saturated": lambda *s: torch.tanh(n(*s, scale=20.0))}
-    pools = [(u(BATCH, 22, 22, 60), 2, "chaos-large pool3"),
-             (u(BATCH, 6, 6, 100), 2, "chaos-large pool5"),
-             (u(3, 7, 7, 5), 2, "cropped tail"),
-             (torch.tanh(n(4, 9, 9, 10, scale=20.0)), 3, "tied maxima"),
-             (torch.zeros(2, 6, 6, 3, device="cuda"), 2, "all-zero windows")]
-    for shape, k, kind, off in POOL_BWD_EDGES:
-        x = pool_inputs[kind](*shape)
-        pools.append((misaligned(torch, x) if off else x, k,
-                      kind + (", x 4 bytes off 16" if off else "")))
+    pools.append((torch.zeros(2, 6, 6, 3, device="cuda"), 2,
+                  "all-zero windows"))
     for (x, k, what) in pools:
         y = P.maxpool2d_fwd_plain(x, k)
         dy = n(*y.shape)
-        vec = x.shape[3] % 4 == 0 and all(t.data_ptr() % 16 == 0
-                                          for t in (x, y, dy))
         cases.append(("maxpool2d_bwd", f"{what} x{tuple(x.shape)} k={k}",
                       lambda x=x, y=y, dy=dy, k=k: P.maxpool2d_bwd(x, y, dy, k),
                       lambda x=x, y=y, dy=dy, k=k:
-                      P.maxpool2d_bwd_plain(x, y, dy, k), 4 if vec else 1))
+                      P.maxpool2d_bwd_plain(x, y, dy, k),
+                      pool_instance("maxpool2d_bwd_kernel", x)))
     for (B, Din, Dout, tanh) in fc_bwd_edge_cases():
         x = u(B, Din)
         w = n(Din, Dout, scale=1 / math.sqrt(Din))
@@ -701,13 +764,12 @@ def check_parity(torch, K, P, FC) -> dict:
                     f"{diff.max().item():.3e} over atol {atol} rtol {rtol}")
         worst[name] = max(worst[name], err)
         if instance:
-            ran = pool_bwd_instances(traced_kernels(torch, kern))
-            if ran != instance:
-                raise AssertionError(f"{name} {label}: ran the instances of "
-                                     f"{ran} channels a thread, expected "
-                                     f"{instance}")
-            label += (f"; ran maxpool2d_bwd_kernel<{ran[0]}> ("
-                      f"{'vector' if ran[0] == 4 else 'scalar'}, by "
+            kernel, args = instance[0]
+            ran = kernel_instances(traced_kernels(torch, kern), kernel)
+            if ran != [args]:
+                raise AssertionError(f"{name} {label}: ran {kernel} "
+                                     f"instances {ran}, expected [{args}]")
+            label += (f"; ran {kernel}<{', '.join(map(str, args))}> (by "
                       f"torch.profiler)")
         print(f"parity {name:17s} {label}: max_abs_err={err:.3e}; second "
               f"call bit-identical", flush=True)
@@ -1181,6 +1243,21 @@ def device_ms(torch, fn, calls: int = PROFILE_CALLS):
     return None, []
 
 
+def cold_device_ms(torch, fn, evict, calls: int = PROFILE_CALLS):
+    """Device ms per call of ``fn`` with ``evict`` run before each call in
+    one torch.profiler trace, ``evict``'s own kernels (named by a trace of
+    it alone) left out of the sum; None when the traces hold no device
+    events."""
+    _, evict_names = device_ms(torch, evict)
+    if not evict_names:
+        return None
+    for _ in range(PROFILE_TRIES):
+        prof = profile_steps(torch, lambda: (evict(), fn()), steps=calls)
+        if prof is not None:
+            return sum(ms for name, ms in prof[1] if name not in evict_names)
+    return None
+
+
 def host_ms(torch, fn, calls: int = HOST_CALLS) -> float:
     """Host-clock ms per call over ``calls`` calls of ``fn`` with no
     synchronize between them: what the caller waits to enqueue one (a
@@ -1208,8 +1285,16 @@ def cnn_times(torch, F, K, P, FC, ops, params, batches, images,
     totals = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                   "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
                   "device_ms": 0.0, "library_device_ms": 0.0,
-                  "host_ms": 0.0}
+                  "host_ms": 0.0, "cold_device_ms": 0.0}
               for n in SOURCES}
+    evict_buf = torch.ones(EVICT_BYTES // 4, device="cuda")
+    one = torch.zeros(1, device="cuda")
+    floor, floor_names = device_ms(torch, lambda: one.fill_(1.0))
+    print("floor: a one-element fill_ takes " + (
+        f"{floor:.6f} ms of device time per call (torch.profiler, "
+        f"{PROFILE_CALLS} calls; {'; '.join(n[:60] for n in floor_names)})"
+        if floor is not None else "not measured (the profiler recorded no "
+        "device events)"), flush=True)
     for name, label, kern, plain, library, n_ops, n_bytes in calls:
         t = time_turns(torch, {"ms": kern, "plain_ms": plain,
                                "library_ms": library})
@@ -1241,6 +1326,25 @@ def cnn_times(torch, F, K, P, FC, ops, params, batches, images,
             + f"; host {host:.6f} ms per kernel call, {lib_host:.6f} ms per "
             f"library call (host clock, {HOST_CALLS} calls, no synchronize)",
             flush=True)
+        if name == "maxpool2d_fwd":
+            cold = cold_device_ms(torch, kern, evict_buf.sum)
+            row["cold_device_ms"] += cold or math.nan
+            print(f"pool forward {label}: " + (
+                f"device {cold:.6f} ms per call with the input read from "
+                f"DRAM (L2 evicted by a {EVICT_BYTES / 2**20:.0f} MiB read "
+                f"before each call), {cold / bound:.3f}x its bound "
+                f"{bound:.6f} ms" if cold is not None else
+                "device time with the L2 evicted not measured") + (
+                f"; warm (the input left in L2 by the call before, read "
+                f"faster than the bound's DRAM rate) {dev:.6f} ms"
+                if dev is not None else "") + f" (bound {n_bytes:.0f} "
+                f"bytes at {PEAK_BYTES:.3g} B/s)", flush=True)
+        if name == "softmax_xent_fwd":
+            print(f"softmax forward {label}: " + (
+                f"device {dev:.6f} ms per call, {dev - floor:.6f} ms above "
+                f"the one-element fill_'s {floor:.6f} ms"
+                if dev is not None and floor is not None else
+                "device time or floor not measured"), flush=True)
         if name == "conv2d_bwd_fused":
             print(f"backward {label}: conv2d_bwd_fused {t['ms']:.6f} ms, "
                   f"{n_ops / t['ms'] / 1e9:.2f} TFLOP/s; library pair "
@@ -1255,6 +1359,11 @@ def cnn_times(torch, F, K, P, FC, ops, params, batches, images,
               f"{row['library_device_ms']:.6f} ms (device); plain "
               f"{row['plain_ms']:.6f} ms; bound {row['bound_ms']:.6f} ms",
               flush=True)
+    pool = totals["maxpool2d_fwd"]
+    print(f"step maxpool2d_fwd per chaos-large step of {BATCH} with the "
+          f"inputs read from DRAM: {pool['cold_device_ms']:.6f} ms (device)"
+          f", {pool['cold_device_ms'] / pool['bound_ms']:.3f}x the bound "
+          f"{pool['bound_ms']:.6f} ms", flush=True)
 
     def eval_once():
         with torch.inference_mode():
@@ -2974,15 +3083,22 @@ def fc_bits(torch, FC) -> None:
               f" {first}", flush=True)
 
 
+def pool_digest_input(torch, g, shape, kind):
+    """A pool digest case's x from ``g``: saturated tanh (tied maxima),
+    special_values, or uniform in [-1, 1]."""
+    if kind == "saturated":
+        return torch.tanh(torch.randn(shape, generator=g, device="cuda") * 20)
+    if kind == "special":
+        return special_values(torch, g, shape)
+    return torch.rand(shape, generator=g, device="cuda") * 2 - 1
+
+
 def pool_bwd_bits(torch, P) -> None:
     """Digests of ``maxpool2d_bwd``'s dx at POOL_DIGEST_CASES, on x and dy
     from a CUDA generator (y their max pool); two runs of each equal."""
     g = torch.Generator(device="cuda").manual_seed(DIGEST_SEED)
     for shape, k, kind in POOL_DIGEST_CASES:
-        if kind == "saturated":
-            x = torch.tanh(torch.randn(shape, generator=g, device="cuda") * 20)
-        else:
-            x = torch.rand(shape, generator=g, device="cuda") * 2 - 1
+        x = pool_digest_input(torch, g, shape, kind)
         y = P.maxpool2d_fwd_plain(x, k)
         dy = torch.randn(tuple(y.shape), generator=g, device="cuda")
         first, second = (digest(torch, (P.maxpool2d_bwd(x, y, dy, k),))
@@ -2993,6 +3109,55 @@ def pool_bwd_bits(torch, P) -> None:
         print(f"digest maxpool2d_bwd x{shape} k={k} {kind}: inputs x, y, dy "
               f"sha256 {digest(torch, (x, y, dy))}; dx sha256 {first}",
               flush=True)
+
+
+def special_values(torch, g, shape):
+    """Draws of [-1, 1] from ``g`` rounded to halves (ties, +0 and -0),
+    about a third of them replaced by NaN, +0, -0, +inf or -inf."""
+    x = torch.round((torch.rand(shape, generator=g, device="cuda") * 2 - 1)
+                    * 2) / 2
+    pick = torch.rand(shape, generator=g, device="cuda") < 0.3
+    idx = torch.randint(0, 5, shape, generator=g, device="cuda")
+    values = torch.tensor([math.nan, 0.0, -0.0, math.inf, -math.inf],
+                          device="cuda")
+    return torch.where(pick, values[idx], x)
+
+
+def pool_fwd_bits(torch, P) -> None:
+    """Digests of ``maxpool2d_fwd``'s y at POOL_FWD_DIGEST_CASES, on x from
+    a CUDA generator; two runs of each equal."""
+    g = torch.Generator(device="cuda").manual_seed(DIGEST_SEED)
+    for shape, k, kind in POOL_FWD_DIGEST_CASES:
+        x = pool_digest_input(torch, g, shape, kind)
+        first, second = (digest(torch, (P.maxpool2d_fwd(x, k),))
+                         for _ in range(2))
+        if first != second:
+            raise AssertionError(f"maxpool2d_fwd x{shape} k={k}: two runs "
+                                 f"differ")
+        print(f"digest maxpool2d_fwd x{shape} k={k} {kind}: inputs x sha256 "
+              f"{digest(torch, (x,))}; y sha256 {first}", flush=True)
+
+
+def softmax_bits(torch, FC) -> None:
+    """Digests of ``softmax_xent_fwd``'s loss and dlogits at
+    SOFTMAX_DIGEST_CASES, on logits and labels from a CUDA generator; two
+    runs of each equal."""
+    g = torch.Generator(device="cuda").manual_seed(DIGEST_SEED)
+    for B, C, kind in SOFTMAX_DIGEST_CASES:
+        logits = (special_values(torch, g, (B, C)) * 4 if kind == "special"
+                  else torch.randn((B, C), generator=g, device="cuda") * 2)
+        labels = torch.randint(0, C, (B,), generator=g, device="cuda",
+                               dtype=torch.int32)
+        if kind == "outside":
+            labels[::2], labels[1::3] = -1, C
+        first, second = (digest(torch, FC.softmax_xent_fwd(logits, labels))
+                         for _ in range(2))
+        if first != second:
+            raise AssertionError(f"softmax_xent_fwd logits{(B, C)}: two "
+                                 f"runs differ")
+        print(f"digest softmax_xent_fwd logits{(B, C)} {kind}: inputs "
+              f"logits, labels sha256 {digest(torch, (logits, labels))}; "
+              f"loss, dlogits sha256 {first}", flush=True)
 
 
 def fc_bwd_bits(torch, FC) -> None:
@@ -3194,6 +3359,8 @@ def kernel_bits(torch, K, FC, P, FA, W, build) -> None:
     fc_bits(torch, FC)
     fc_bwd_bits(torch, FC)
     pool_bwd_bits(torch, P)
+    pool_fwd_bits(torch, P)
+    softmax_bits(torch, FC)
     wkv_bits(torch, W)
     flash_fwd_bits(torch, FA)
     flash_bwd_bits(torch, FA)

@@ -220,9 +220,8 @@ def test_chip_smoke_finds_conv_instances_with_stack():
     assert smoke.held_with_stack([flash, rows[0]]) == []
 
 
-#: Mangled names of instances of the FC, pool and WKV sources: the
-#: redesigned fc.cu, pool_bwd.cu, fc_bwd.cu and wkv6.cu are held to no
-#: stack, pool.cu not.
+#: Mangled names of instances of the FC, pool, softmax-xent and WKV
+#: sources, every one of them redesigned and held to no stack.
 STACK_NAMES = [
     ("_ZN42_GLOBAL__N__0b1c2d3e_5_fc_cu_4f5e6d7c13fc_fwd_kernelEPKfS1_S1_"
      "Pfiiii", True),
@@ -230,14 +229,18 @@ STACK_NAMES = [
      "kernelILi4EEEvPKfS2_S2_Pfiiiiiii", True),
     ("_ZN46_GLOBAL__N__0b1c2d3e_9_fc_bwd_cu_4f5e6d7c13fc_bwd_kernelEv",
      True),
-    ("_ZN44_GLOBAL__N__0b1c2d3e_7_pool_cu_4f5e6d7c20maxpool2d_fwd_kernelEv",
-     False),
+    ("_ZN44_GLOBAL__N__0b1c2d3e_7_pool_cu_4f5e6d7c20maxpool2d_fwd_kernelILi4E"
+     "Li2EEEvNS_4ArgsE", True),
     ("_ZN44_GLOBAL__N__0b1c2d3e_7_wkv6_cu_4f5e6d7c21wkv6_chunk_out_kernelI"
-     "13__nv_bfloat16fEEvNS_4ArgsE", True)]
+     "13__nv_bfloat16fEEvNS_4ArgsE", True),
+    ("_ZN52_GLOBAL__N__0b1c2d3e_15_softmax_xent_cu_4f5e6d7c25softmax_xent_"
+     "lanes_kernelEPKfPKiPfS4_ii", True),
+    ("_ZN2tc20flash_fwd_mma_kernelILi128EEEvNS_4ArgsE", False)]
 
 
 @pytest.mark.parametrize("name,held", STACK_NAMES,
-                         ids=["fc", "pool_bwd", "fc_bwd", "pool", "wkv6"])
+                         ids=["fc", "pool_bwd", "fc_bwd", "pool", "wkv6",
+                              "softmax_xent", "flash"])
 def test_chip_smoke_holds_the_fc_forward_and_pool_backward_to_no_stack(
         name, held):
     smoke = _chip_smoke()
@@ -249,15 +252,37 @@ def test_chip_smoke_holds_the_fc_forward_and_pool_backward_to_no_stack(
 @pytest.mark.parametrize("name,want", [
     ("void (anonymous namespace)::maxpool2d_bwd_kernel<4>(float const*, "
      "float const*, float const*, float*, int, int, int, int, int, int, "
-     "int)", [4]),
+     "int)", [(4,)]),
     ("_ZN48_GLOBAL__N__0b1c2d3e_11_pool_bwd_cu_4f5e6d7c20maxpool2d_bwd_"
-     "kernelILi1EEEvPKfS2_S2_Pfiiiiiii", [1]),
+     "kernelILi1EEEvPKfS2_S2_Pfiiiiiii", [(1,)]),
     ("void (anonymous namespace)::maxpool2d_fwd_kernel(float const*)", []),
     ("void (anonymous namespace)::fc_fwd_kernel(float const*)", [])],
     ids=["demangled", "mangled", "pool-fwd", "fc"])
 def test_chip_smoke_reads_the_pool_backward_instance_from_kernel_names(
         name, want):
-    assert _chip_smoke().pool_bwd_instances([name]) == want
+    assert _chip_smoke().kernel_instances([name],
+                                          "maxpool2d_bwd_kernel") == want
+
+
+@pytest.mark.parametrize("name,kernel,want", [
+    ("void (anonymous namespace)::maxpool2d_fwd_kernel<4, 2>((anonymous "
+     "namespace)::Args)", "maxpool2d_fwd_kernel", [(4, 2)]),
+    ("_ZN44_GLOBAL__N__0b1c2d3e_7_pool_cu_4f5e6d7c20maxpool2d_fwd_kernelILi1E"
+     "Li0EEEvNS_4ArgsE", "maxpool2d_fwd_kernel", [(1, 0)]),
+    ("void (anonymous namespace)::softmax_xent_lanes_kernel(float "
+     "const*, int const*, float*, float*, int, int)",
+     "softmax_xent_lanes_kernel", [()]),
+    ("void (anonymous namespace)::softmax_xent_warp_kernel(float const*, "
+     "int const*, float*, float*, int, int)", "softmax_xent_warp_kernel",
+     [()]),
+    ("void (anonymous namespace)::softmax_xent_warp_kernel(float const*, "
+     "int const*, float*, float*, int, int)", "softmax_xent_lanes_kernel",
+     [])],
+    ids=["pool-demangled", "pool-mangled", "softmax-lanes", "softmax-warp",
+         "other-kernel"])
+def test_chip_smoke_reads_template_arguments_from_kernel_names(
+        name, kernel, want):
+    assert _chip_smoke().kernel_instances([name], kernel) == want
 
 
 def test_chip_smoke_retries_a_trace_without_device_events(monkeypatch):
@@ -274,6 +299,24 @@ def test_chip_smoke_retries_a_trace_without_device_events(monkeypatch):
     with pytest.raises(AssertionError, match="no device events"):
         smoke.traced_kernels(torch, None)
     assert smoke.device_ms(torch, None) == (None, [])
+
+
+def test_chip_smoke_times_the_pool_forward_without_the_eviction(
+        monkeypatch):
+    """The pool forward's DRAM time sums the kernels of a trace of
+    eviction + call, less the eviction's own (named by a trace of it
+    alone), and reads not measured when a trace holds no device events."""
+    smoke = _chip_smoke()
+    evict = [("reduce_kernel", 0.08), ("reduce_tail", 0.001)]
+    traces = iter([(1.0, evict, 2, {}),
+                   (1.0, evict + [("maxpool2d_fwd_kernel", 0.012)], 3, {})])
+    monkeypatch.setattr(smoke, "profile_steps",
+                        lambda torch, fn, steps: next(traces))
+    assert smoke.cold_device_ms(torch, None, None) == pytest.approx(0.012)
+    monkeypatch.setattr(smoke, "profile_steps",
+                        lambda torch, fn, steps: None)
+    assert smoke.cold_device_ms(torch, None, None) is None
+    assert smoke.EVICT_BYTES >= 2 * 50 * 2**20  # twice the H100's L2
 
 
 def test_chip_smoke_fc_edge_cases_cover_every_shape_and_form():
@@ -330,10 +373,10 @@ def test_chip_smoke_wkv_edges_reach_short_chunks_long_walks_and_odd_grids():
 
 
 def test_chip_smoke_pool_backward_edges_reach_both_instances():
-    """Phase 2's maxpool2d_bwd edge cases: C of the scalar and the vector
-    instance at k = 3 with cropped tails and H != W, B=1, all-tied windows
-    and one misaligned x with C % 4 == 0."""
-    edges = _chip_smoke().POOL_BWD_EDGES
+    """Phase 2's pool edge cases, which both pool kernels run: C of the
+    scalar and the vector instance at k = 3 with cropped tails and H != W,
+    B=1, all-tied windows and one misaligned x with C % 4 == 0."""
+    edges = _chip_smoke().POOL_EDGES
     k3 = {shape[3] for shape, k, _, _ in edges
           if k == 3 and shape[1] != shape[2] and shape[1] % 3 and
           shape[2] % 3}
@@ -342,6 +385,65 @@ def test_chip_smoke_pool_backward_edges_reach_both_instances():
     assert {shape[3] % 4 == 0 for shape, _, kind, _ in edges
             if kind == "ones"} == {True, False}
     assert [shape[3] % 4 for shape, _, _, off in edges if off] == [0]
+
+
+def _edge_input(smoke, shape, off):
+    x = torch.zeros(shape)
+    return smoke.misaligned(torch, x) if off else x
+
+
+def test_chip_smoke_pool_forward_edges_reach_both_instances_and_windows():
+    """Phase 2's pool forward cases pick the vector and the scalar instance
+    each with the window fixed at compile time (k = 2) and taken at run
+    time (k = 3), the misaligned x the scalar one."""
+    smoke = _chip_smoke()
+    picked = {smoke.pool_instance("maxpool2d_fwd_kernel",
+                                  _edge_input(smoke, shape, off), k)[1]
+              for shape, k, _, off in smoke.POOL_EDGES}
+    assert picked == {(4, 2), (4, 0), (1, 2), (1, 0)}
+    off = [smoke.pool_instance("maxpool2d_fwd_kernel",
+                               _edge_input(smoke, shape, True), k)[1]
+           for shape, k, _, o in smoke.POOL_EDGES if o]
+    assert off == [(1, 2)]
+
+
+def test_chip_smoke_softmax_edges_reach_both_paths():
+    """Phase 2's softmax_xent_fwd cases reach the lanes kernel (16 lanes
+    a row) at its widest row, and the warp per row past 16 classes; Bs no
+    multiple of a block's rows, and labels outside [0, C) at both."""
+    smoke = _chip_smoke()
+    edges = smoke.SOFTMAX_EDGES
+    lanes = ("softmax_xent_lanes_kernel", ())
+    warp = ("softmax_xent_warp_kernel", ())
+    assert {smoke.softmax_instance(C) for _, C, _ in edges} == {lanes, warp}
+    assert {smoke.softmax_instance(C) for C in (1, 16)} == {lanes}
+    assert {smoke.softmax_instance(C) for C in (17, 32, 33)} == {warp}
+    assert {C for _, C, _ in edges} >= {1, 10, 16, 17, 31, 32, 33, 40}
+    # a 64-thread block of the lanes kernel holds 4 rows, of the warp's 8
+    assert any(B % 4 for B, C, _ in edges if C <= 16)
+    assert any(B % 8 for B, C, _ in edges if C > 16)
+    assert {smoke.softmax_instance(C) for _, C, labels in edges
+            if labels == "outside"} == {smoke.softmax_instance(C)
+                                        for _, C, _ in edges}
+
+
+def test_chip_smoke_digests_both_pool_forward_instances_and_softmax_paths():
+    """Phase 19 digests maxpool2d_fwd at both chaos-large pools, a
+    saturated k = 3 case with a cropped tail and NaN / ±0 inputs, and
+    softmax_xent_fwd at (256, 10), (3, 10) and (5, 40), with labels outside
+    [0, C) and with NaN / ±0 logits; both sources are held to no stack."""
+    smoke = _chip_smoke()
+    pools = smoke.POOL_FWD_DIGEST_CASES
+    assert pools[:2] == [((256, 22, 22, 60), 2, "uniform"),
+                         ((256, 6, 6, 100), 2, "uniform")]
+    assert any(k == 3 and kind == "saturated" and shape[1] % 3
+               for shape, k, kind in pools)
+    assert {shape[3] % 4 == 0 for shape, _, kind in pools
+            if kind == "special"} == {True, False}
+    cases = smoke.SOFTMAX_DIGEST_CASES
+    assert {(B, C) for B, C, _ in cases} >= {(256, 10), (3, 10), (5, 40)}
+    assert {"outside", "special"} <= {kind for *_, kind in cases}
+    assert {"pool", "softmax_xent"} <= set(smoke.NO_STACK_SOURCES)
 
 
 #: ``cuobjdump -sass`` lines of four flash instances: a bf16 backward one
