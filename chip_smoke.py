@@ -15,7 +15,8 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
    library yardsticks, the kernels built from ``src/repro_torch/kernels/
    csrc`` (build time printed).
 2. Per-kernel parity: each of the seven kernels against its plain PyTorch
-   version on the card, at chaos-large's B=256 shapes plus edge shapes
+   version on the card, at chaos-large's B=256 shapes and its worker
+   route's micro-shard of B=32, plus edge shapes
    (a batch that is no block multiple, a cropped pool tail, tied maxima
    from saturated tanh, ragged FC tiles, more classes than a warp, a conv
    with uneven dx row blocks and no tanh; for the forward conv non-square
@@ -50,6 +51,20 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
    backward), the losses held against the same steps on the CPU plain
    path from the same state, two bsp runs bit-identical, layerwise bsp
    bit-equal to batched bsp; chaos-small and chaos-medium one step each.
+4b. The worker route: chaos-large's global batch of 256 as 8 micro-shards
+   of 32 (``WorkerConfig(logical_shards=8)``) through
+   ``init_worker_state`` and ``make_worker_superstep`` on ``cuda``, 8 steps
+   as two supersteps of 4, counts from 0 around each superstep (exactly
+   15 launches per micro-shard, 120 a step at every N): bsp at N=1, 2 and
+   4 with state and losses bit-identical across N; chaos τ=1 at N=1
+   bit-equal to bsp at N=1; layerwise bsp at N=2 bit-equal to bsp at N=2;
+   chaos τ=1 at N=2 and 4 and localsgd (local_steps=4, τ=0) at N=2, each
+   held against the same steps on the CPU plain path from the same state
+   within TRAIN_LOSS_ATOL, the chaos workers' parameters shown to differ.
+   Then the bsp worker step's ms a step at each N and the single-instance
+   step's (CUDA events around each superstep of 4, median of 5 after a
+   warm-up) with the device's busy share over one superstep
+   (torch.profiler), the card's name and power limit on each line.
 5. Times: each kernel at the training step's shapes against its plain
    version, one PyTorch library call for the same function (a yardstick
    the port never calls) and its bound on the card, by CUDA events,
@@ -229,6 +244,11 @@ PEAK_BYTES = 3.35e12
 #: flash kernel's products.
 PEAK_BF16 = 989e12
 BATCH = 256
+#: The worker route (phase 4b) splits chaos-large's global batch into
+#: WORKER_SHARDS micro-shards (WorkerConfig.logical_shards) of SHARD_BATCH,
+#: the shape phase 2 also holds each kernel at.
+WORKER_SHARDS = 8
+SHARD_BATCH = BATCH // WORKER_SHARDS
 EVAL_BATCHES = 8
 TRAIN_STEPS = 8
 #: Kernel against plain version, (atol, rtol) on every output element.  The
@@ -389,6 +409,9 @@ SPLIT_BENCH = (8, 26, 20, 5, 60)
 CONV_FWD_CASES = [(BATCH, 29, 29, 1, 4, 20, "tanh", True),
                   (BATCH, 26, 26, 20, 5, 60, "tanh", True),
                   (BATCH, 11, 11, 60, 6, 100, "tanh", True),
+                  (SHARD_BATCH, 29, 29, 1, 4, 20, "tanh", True),
+                  (SHARD_BATCH, 26, 26, 20, 5, 60, "tanh", True),
+                  (SHARD_BATCH, 11, 11, 60, 6, 100, "tanh", True),
                   (3, 29, 29, 1, 4, 5, "tanh", True),
                   (3, 41, 41, 20, 5, 7, None, False),
                   (3, 13, 17, 5, 4, 33, "tanh", True),
@@ -409,6 +432,9 @@ CONV_FWD_CASES = [(BATCH, 29, 29, 1, 4, 20, "tanh", True),
 CONV_BWD_CASES = [(BATCH, 29, 29, 1, 4, 20, True),
                   (BATCH, 26, 26, 20, 5, 60, True),
                   (BATCH, 11, 11, 60, 6, 100, True),
+                  (SHARD_BATCH, 29, 29, 1, 4, 20, True),
+                  (SHARD_BATCH, 26, 26, 20, 5, 60, True),
+                  (SHARD_BATCH, 11, 11, 60, 6, 100, True),
                   (8, 29, 29, 1, 4, 20, True),
                   (8, 26, 26, 20, 5, 60, True),
                   (8, 11, 11, 60, 6, 100, True),
@@ -484,8 +510,8 @@ POOL_DIGEST_CASES = [((BATCH, 22, 22, 60), 2, "uniform"),
 #: no multiple of the lanes kernel's 4 rows a block or of the warp
 #: kernel's 8; labels -1 and C (outside [0, C)) mixed into the batch at
 #: both kernels.
-SOFTMAX_EDGES = [(BATCH, 10, "in"), (3, 10, "in"), (5, 40, "in"),
-                 (7, 1, "in"), (5, 16, "in"), (9, 17, "in"), (9, 31, "in"),
+SOFTMAX_EDGES = [(BATCH, 10, "in"), (SHARD_BATCH, 10, "in"), (3, 10, "in"),
+                 (5, 40, "in"), (7, 1, "in"), (5, 16, "in"), (9, 17, "in"), (9, 31, "in"),
                  (8, 32, "in"), (7, 33, "in"), (257, 10, "in"),
                  (BATCH, 10, "outside"), (7, 31, "outside"),
                  (65, 33, "outside")]
@@ -549,6 +575,15 @@ LARGE_PER_STEP = {**LARGE_PER_BATCH, "conv2d_bwd_fused": 3,
                   "maxpool2d_bwd": 2, "fc_bwd_fused": 2}
 SMALL_PER_STEP = {**SMALL_PER_BATCH, "conv2d_bwd_fused": 2,
                   "maxpool2d_bwd": 2, "fc_bwd_fused": 2}
+#: Phase 4b, the worker route: TRAIN_STEPS steps as supersteps of
+#: WORKER_K at each worker count.
+WORKER_K = 4
+WORKER_COUNTS = (1, 2, 4)
+#: Every micro-shard runs the single-instance step's 15 launches: 120 a
+#: worker step at every N.
+WORKER_PER_STEP = {k: v * WORKER_SHARDS for k, v in LARGE_PER_STEP.items()}
+#: Supersteps timed at each worker count after one warm-up.
+WORKER_TIMED = 5
 
 
 def phase(name):
@@ -661,6 +696,8 @@ def parity_cases(torch, K, P, FC):
                    "saturated": lambda *s: torch.tanh(n(*s, scale=20.0))}
     pools = [(u(BATCH, 22, 22, 60), 2, "chaos-large pool3"),
              (u(BATCH, 6, 6, 100), 2, "chaos-large pool5"),
+             (u(SHARD_BATCH, 22, 22, 60), 2, "chaos-large pool3, one shard"),
+             (u(SHARD_BATCH, 6, 6, 100), 2, "chaos-large pool5, one shard"),
              (u(3, 7, 7, 5), 2, "cropped tail"),
              (torch.tanh(n(4, 9, 9, 10, scale=20.0)), 3, "tied maxima")]
     for shape, k, kind, off in POOL_EDGES:
@@ -674,6 +711,8 @@ def parity_cases(torch, K, P, FC):
                       pool_instance("maxpool2d_fwd_kernel", x, k)))
     for (B, Din, Dout, act, bias) in [(BATCH, 900, 150, "tanh", True),
                                       (BATCH, 150, 10, None, True),
+                                      (SHARD_BATCH, 900, 150, "tanh", True),
+                                      (SHARD_BATCH, 150, 10, None, True),
                                       (3, 37, 19, "tanh", False),
                                       *fc_edge_cases()]:
         x = u(B, Din)
@@ -718,7 +757,9 @@ def parity_cases(torch, K, P, FC):
                       lambda x=x, y=y, dy=dy, k=k:
                       P.maxpool2d_bwd_plain(x, y, dy, k),
                       pool_instance("maxpool2d_bwd_kernel", x)))
-    for (B, Din, Dout, tanh) in fc_bwd_edge_cases():
+    for (B, Din, Dout, tanh) in [(SHARD_BATCH, 900, 150, True),
+                                 (SHARD_BATCH, 150, 10, False),
+                                 *fc_bwd_edge_cases()]:
         x = u(B, Din)
         w = n(Din, Dout, scale=1 / math.sqrt(Din))
         y = u(B, Dout) if tanh else None
@@ -1003,6 +1044,200 @@ def check_training(torch, kops, launch_trace, batches_np):
         print(f"train {name}: one step, loss {losses[0]:.6f}, launches "
               f"{counts}", flush=True)
     return bsp_counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: the worker route
+# ---------------------------------------------------------------------------
+def worker_run(torch, kops, launch_trace, cfg, sync, n, state_np,
+               batches_np, device):
+    """Train N=``n`` workers from ``state_np`` on ``device`` over
+    ``batches_np`` as supersteps of WORKER_K; on the card, counts are set
+    to 0 just before each superstep and held to WORKER_PER_STEP just
+    after.  Returns (state, losses, counts of the last superstep)."""
+    from repro_torch import bridge
+    from repro_torch.core.types import WorkerConfig
+    from repro_torch.train.step import make_worker_superstep
+
+    worker = WorkerConfig(workers=n, logical_shards=WORKER_SHARDS)
+    state = bridge.state_from_numpy(state_np, device)
+    fn = make_worker_superstep(cfg, sync, worker, device=device)
+    losses, counts = [], None
+    for i in range(0, len(batches_np), WORKER_K):
+        sup = {k: torch.as_tensor(np.stack([b[k] for b in
+                                            batches_np[i:i + WORKER_K]]),
+                                  device=device) for k in batches_np[0]}
+        if device == "cuda":
+            torch.cuda.synchronize()
+        kops.reset_launch_counts()
+        with launch_trace() as trace:
+            state, m = fn(state, sup)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts = kops.launch_counts()
+            want = {k: WORKER_PER_STEP.get(k, 0) * WORKER_K for k in counts}
+            if (counts != want or len(trace)
+                    != sum(WORKER_PER_STEP.values()) * WORKER_K):
+                raise AssertionError(f"worker route N={n} {sync}: launches "
+                                     f"{counts}, expected {want}")
+        losses += m["loss"].tolist()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"worker route N={n} {sync}: non-finite "
+                             f"losses {losses}")
+    return state, losses, counts
+
+
+def states_equal(torch, a, b) -> bool:
+    """Every leaf of two states' params, opt and sync trees bit-equal."""
+    from repro_torch.core.tree import tree_leaves
+
+    la = [x for k in ("params", "opt", "sync") for x in tree_leaves(a[k])]
+    lb = [x for k in ("params", "opt", "sync") for x in tree_leaves(b[k])]
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def worker_state_np(torch, cfg, sync, n):
+    """The worker route's initial state from seed 0, drawn on the card, as
+    numpy."""
+    from repro_torch import bridge
+    from repro_torch.core.types import WorkerConfig
+    from repro_torch.train.step import init_worker_state
+    from repro_torch.train.sync import get_strategy
+
+    state = init_worker_state(cfg, torch.Generator().manual_seed(0), sync,
+                              WorkerConfig(workers=n,
+                                           logical_shards=WORKER_SHARDS),
+                              device="cuda")
+    return bridge.state_to_numpy(
+        state, n if get_strategy(sync).stacked_state else None)
+
+
+def check_workers(torch, kops, launch_trace, batches_np):
+    """Phase 4b: the worker route's checks."""
+    from repro_torch.configs import get
+    from repro_torch.core.chaos import SyncConfig
+
+    cfg = get("chaos-large")
+    bsp = SyncConfig("bsp")
+    bsp_np = worker_state_np(torch, cfg, bsp, 1)
+    runs = {}
+    for n in WORKER_COUNTS:
+        runs[n] = worker_run(torch, kops, launch_trace, cfg, bsp, n, bsp_np,
+                             batches_np, "cuda")
+        print(f"workers chaos-large bsp N={n}: {len(batches_np)} steps of "
+              f"{BATCH} as {WORKER_SHARDS} micro-shards of {SHARD_BATCH}, "
+              f"losses {runs[n][1]}, launches a superstep of {WORKER_K} "
+              f"{runs[n][2]}", flush=True)
+    for n in WORKER_COUNTS[1:]:
+        if not (states_equal(torch, runs[n][0], runs[1][0])
+                and runs[n][1] == runs[1][1]):
+            raise AssertionError(f"worker bsp N={n} is not bit-identical "
+                                 f"to N=1")
+    print("workers: bsp state and losses bit-identical at N="
+          f"{', '.join(map(str, WORKER_COUNTS))}", flush=True)
+
+    chaos = SyncConfig("chaos", staleness=1)
+    c1, c1_losses, _ = worker_run(torch, kops, launch_trace, cfg, chaos, 1,
+                                  worker_state_np(torch, cfg, chaos, 1),
+                                  batches_np, "cuda")
+    if not (c1_losses == runs[1][1] and all(
+            torch.equal(c1["params"][k][kk][0], runs[1][0]["params"][k][kk])
+            for k in c1["params"] for kk in c1["params"][k])):
+        raise AssertionError("worker chaos tau=1 at N=1 is not bit-equal to "
+                             "bsp at N=1")
+    print("workers: chaos tau=1 at N=1 bit-equal to bsp at N=1", flush=True)
+
+    lw = SyncConfig("bsp", layerwise=True)
+    lw_state, lw_losses, _ = worker_run(torch, kops, launch_trace, cfg, lw,
+                                        2, bsp_np, batches_np, "cuda")
+    if not (states_equal(torch, lw_state, runs[2][0])
+            and lw_losses == runs[2][1]):
+        raise AssertionError("layerwise worker bsp at N=2 is not bit-equal "
+                             "to worker bsp at N=2")
+    print("workers: layerwise bsp at N=2 bit-equal to bsp at N=2",
+          flush=True)
+
+    for label, sync, n in [
+            ("chaos tau=1", chaos, 2), ("chaos tau=1", chaos, 4),
+            ("localsgd local_steps=4 tau=0",
+             SyncConfig("localsgd", local_steps=WORKER_K, staleness=0), 2)]:
+        state_np = worker_state_np(torch, cfg, sync, n)
+        state, losses, _ = worker_run(torch, kops, launch_trace, cfg, sync,
+                                      n, state_np, batches_np, "cuda")
+        _, cpu_losses, _ = worker_run(torch, kops, launch_trace, cfg, sync,
+                                      n, state_np, batches_np, "cpu")
+        d = max(abs(x - y) for x, y in zip(losses, cpu_losses))
+        w = state["params"]["conv2"]["w"]
+        spread = (w[1:] - w[:1]).abs().max().item()
+        print(f"workers chaos-large {label} N={n}: losses {losses} (CPU "
+              f"plain path {cpu_losses}, max |diff| {d:.3e}); workers' "
+              f"conv2 weights apart by up to {spread:.3e}", flush=True)
+        if d > TRAIN_LOSS_ATOL:
+            raise AssertionError(f"workers {label} N={n}: card and CPU "
+                                 f"losses differ by {d:.3e} > "
+                                 f"{TRAIN_LOSS_ATOL}")
+        if sync.mode == "chaos" and spread == 0.0:
+            raise AssertionError(f"workers {label} N={n}: the workers' "
+                                 f"parameters do not differ")
+
+
+def worker_times(torch, images, labels):
+    """Phase 4b's times: the bsp worker step at each N and the
+    single-instance step, both at B=BATCH over supersteps of WORKER_K:
+    ms a step by CUDA events around each superstep (median of
+    WORKER_TIMED after one warm-up superstep), and the device's busy share
+    over one superstep (torch.profiler)."""
+    from repro_torch.configs import get
+    from repro_torch.core.chaos import SyncConfig
+    from repro_torch.core.types import WorkerConfig
+    from repro_torch.train.step import (init_train_state, init_worker_state,
+                                        make_superstep, make_worker_superstep)
+
+    cfg, sync = get("chaos-large"), SyncConfig("bsp")
+    sup = {"images": torch.as_tensor(images[:BATCH * WORKER_K],
+                                     device="cuda").view(
+                                         WORKER_K, BATCH, *images.shape[1:]),
+           "labels": torch.as_tensor(labels[:BATCH * WORKER_K],
+                                     device="cuda").view(WORKER_K, BATCH)}
+    routes = {"single instance": (
+        init_train_state(cfg, torch.Generator().manual_seed(0), sync,
+                         device="cuda"),
+        make_superstep(cfg, sync, device="cuda"))}
+    for n in WORKER_COUNTS:
+        worker = WorkerConfig(workers=n, logical_shards=WORKER_SHARDS)
+        routes[f"workers N={n}"] = (
+            init_worker_state(cfg, torch.Generator().manual_seed(0), sync,
+                              worker, device="cuda"),
+            make_worker_superstep(cfg, sync, worker, device="cuda"))
+    out = {}
+    for label, (state, fn) in routes.items():
+        box = [state]
+
+        def one(fn=fn, box=box):
+            box[0], _ = fn(box[0], sup)
+
+        one()
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(WORKER_TIMED):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            one()
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end) / WORKER_K)
+        prof = profile_steps(torch, one, steps=1)
+        out[label] = (statistics.median(ms), min(ms), max(ms),
+                      None if prof is None else prof[0])
+    card = card_line()
+    for label, (med, lo, hi, busy) in out.items():
+        print(f"step time {label}: {med:.4f} ms a step of {BATCH} (CUDA "
+              f"events, median of {WORKER_TIMED} supersteps of {WORKER_K}, "
+              f"{lo:.4f}-{hi:.4f}), device busy "
+              + ("not measured (no device events)" if busy is None
+                 else f"{busy * 100:.2f} %") + f"; card {card}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3429,6 +3664,18 @@ def main(argv=None) -> int:
               " / make_superstep on cuda")
         train_counts = check_training(torch, kops, launch_trace,
                                       batches_np[:TRAIN_STEPS])
+        phase(f"4b worker route: chaos-large at N="
+              f"{', '.join(map(str, WORKER_COUNTS))} workers, "
+              f"{WORKER_SHARDS} micro-shards, through make_worker_superstep"
+              f" on cuda")
+        t0 = time.perf_counter()
+        check_workers(torch, kops, launch_trace, batches_np[:TRAIN_STEPS])
+        worker_times(torch, images, labels)
+        print(f"phase 4b took {time.perf_counter() - t0:.1f} s; the worker "
+              f"step enqueues {sum(WORKER_PER_STEP.values())} kernel "
+              f"launches a step against the single instance's "
+              f"{sum(LARGE_PER_STEP.values())}, so it is host-bound (a "
+              f"captured graph of the superstep is ROADMAP A6b)", flush=True)
     torch.cuda.synchronize()
 
     phase("5 times at the training step's shapes (CUDA events, median of "

@@ -40,18 +40,26 @@ def params_to_numpy(tree):
 
 def state_from_numpy(state, device):
     """A train state as numpy (``{"params", "opt", "sync", "step"}``, the
-    JAX package's ``init_train_state`` layout) -> the port's: trees of
-    tensors on ``device`` and ``step`` a host int."""
+    JAX package's ``init_train_state`` or ``init_worker_state`` layout,
+    worker-stacked or not) -> the port's: trees of tensors on ``device``
+    and ``step`` a host int.  A worker-stacked state's ``(N,)`` step is
+    taken only when all N workers are at the same step."""
+    step = np.asarray(state["step"])
+    if step.ndim == 1 and (step != step[0]).any():
+        raise ValueError(f"the workers are at different steps {step}; the "
+                         f"port keeps one step for all of them")
     return {"params": params_from_numpy(state["params"], device),
             "opt": params_from_numpy(state["opt"], device),
             "sync": params_from_numpy(state["sync"], device),
-            "step": int(np.asarray(state["step"]))}
+            "step": int(step.reshape(-1)[0])}
 
 
-def state_to_numpy(state):
+def state_to_numpy(state, workers=None):
     """Inverse of ``state_from_numpy``; ``step`` comes back as an int32
-    array."""
+    array: a scalar, or with ``workers`` the ``(workers,)`` step of a
+    worker-stacked state."""
+    step = np.asarray(state["step"], np.int32)
     return {"params": params_to_numpy(state["params"]),
             "opt": params_to_numpy(state["opt"]),
             "sync": params_to_numpy(state["sync"]),
-            "step": np.asarray(state["step"], np.int32)}
+            "step": step if workers is None else np.full(workers, step)}

@@ -1,5 +1,5 @@
 """CHAOS gradient-synchronization config and helpers of the port
-(counterpart of ``repro.core.chaos``), single-instance part.
+(counterpart of ``repro.core.chaos``).
 
 ``SyncConfig`` carries every field of the JAX package's.  The strategies
 that read it live in ``train/sync.py``:
@@ -7,23 +7,32 @@ that read it live in ``train/sync.py``:
 ``bsp``       bulk-synchronous SGD: the combined fresh gradient gates
               every update.
 ``chaos``     controlled Hogwild with staleness τ (``staleness``): on one
-              instance the whole exchange is applied τ steps late; τ=0 is
-              exactly ``bsp`` (the same strategy object).
+              instance the whole exchange is applied τ steps late; on the
+              worker route each worker applies its own term at once and
+              the other workers' terms τ steps late; τ=0 is exactly
+              ``bsp`` (the same strategy object).
 ``localsgd``  local updates, parameters averaged every ``local_steps``
-              steps over ``axis_name`` (the identity on one instance).
+              steps over the workers (the identity on one instance).
 
-Not yet ported: the worker mesh (``gathered_shard_mean``, the worker
-steps) and the overlap harness's collective-latency injection
+The worker route emulates N workers in one process on one device, as the
+JAX package emulates them on forced host devices.  A value each worker
+holds for itself carries a leading worker axis ``(N, ...)``; a stack of
+micro-shard values is ``(logical_shards, ...)`` in global shard order,
+worker w owning rows ``[w·S/N, (w+1)·S/N)``.  The collectives below are
+functions over those axes that reduce in a fixed order, so every run
+gives the same bits; ``torch.distributed`` is not used.
+
+Not yet ported: the overlap harness's collective-latency injection
 (``collective_delay_ns_per_byte > 0`` raises).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,8 +40,9 @@ class SyncConfig:
     mode: str = "bsp"            # any name in train/sync.py's registry
     local_steps: int = 8         # K for localsgd
     compress: bool = False       # bf16 gradient exchange w/ error feedback
-    #: named mesh axis of the localsgd parameter average; None (a single
-    #: instance) makes the average the identity
+    #: the worker axis of the localsgd parameter average (the worker step
+    #: sets it to ``WorkerConfig.axis``); None (a single instance) makes the
+    #: average the identity
     axis_name: Optional[str] = None
     #: chaos staleness τ, in steps: the exchange folds into the update τ
     #: steps late through a ring of τ params-shaped slots; τ=0 resolves to
@@ -46,8 +56,8 @@ class SyncConfig:
     #: injected per-byte collective latency of the overlap harness; only 0
     #: is ported
     collective_delay_ns_per_byte: float = 0.0
-    #: layerwise worker-mesh schedule of the overlap harness; not consulted
-    #: on one instance
+    #: layerwise worker schedule of the overlap harness (the shard tape);
+    #: not consulted on one instance, and the worker route raises on it
     interleave: bool = False
 
     def __post_init__(self):
@@ -86,15 +96,14 @@ def init_sync_state(sync: SyncConfig, params):
 
 def localsgd_average(sync: SyncConfig, params, step: int):
     """Paper strategy-C boundary: every ``local_steps``-th step the
-    replicas' parameters are averaged over ``sync.axis_name``.  On one
-    instance (``axis_name`` None) the average is the identity; the worker
-    mesh that gives it peers is not yet ported."""
-    if sync.axis_name is not None:
-        raise NotImplementedError(
-            "localsgd over a named worker axis is not yet ported to "
-            "repro_torch (single instance only: axis_name=None)")
-    del step
-    return params
+    workers' parameters are averaged.  On one instance (``axis_name``
+    None) the average is the identity; on the worker route every leaf of
+    ``params`` carries the leading worker axis and each worker gets a copy
+    of ``worker_mean``."""
+    if sync.axis_name is None or (step + 1) % sync.local_steps != 0:
+        return params
+    n = tree_leaves(params)[0].shape[0]
+    return replicate_for_workers(worker_mean(params), n)
 
 
 def compress_grads(grads, residual):
@@ -104,3 +113,121 @@ def compress_grads(grads, residual):
     acc = tree_map(lambda g, r: g.float() + r, grads, residual)
     q = tree_map(lambda a: a.to(torch.bfloat16), acc)
     return q, tree_map(lambda a, qq: a - qq.float(), acc, q)
+
+
+# ---------------------------------------------------------------------------
+# The worker route's collectives (the JAX package's shard_map path).
+# ---------------------------------------------------------------------------
+def gathered_shard_mean(stacks, n_shards: int):
+    """Worker-count-invariant mean of stacked per-shard gradients.
+
+    ``stacks`` holds the N workers' trees, in worker order, whose leaves
+    are ``(n_shards / N, ...)`` stacks of that worker's micro-shard
+    values.  They are concatenated in worker order, which is global shard
+    order since worker w owns the contiguous shards [w·S/N, (w+1)·S/N),
+    upcast to f32 (the compressed exchange moves bf16) and reduced by ONE
+    fixed-shape sum over ``n_shards`` times ``1/n_shards``.  The sum sees
+    the same ``(n_shards, ...)`` tensor for every N dividing
+    ``n_shards``, so its result does not depend on N; summing per worker
+    and adding the partial sums would.  In one process the route's
+    ``(n_shards, ...)`` stack is already that concatenation, and passes as
+    a single piece."""
+    inv = 1.0 / n_shards
+
+    def one(*xs):
+        x = torch.cat(xs) if len(xs) > 1 else xs[0]
+        if x.shape[0] != n_shards:
+            raise ValueError(f"the workers' stacks hold {x.shape[0]} "
+                             f"shards, expected {n_shards}")
+        return torch.sum(x.float(), 0) * inv
+
+    return tree_map(one, *stacks)
+
+
+def worker_sum(x):
+    """The sum over the leading worker axis of ``x``, in worker order
+    (``psum``)."""
+    acc = x[0]
+    for w in range(1, x.shape[0]):
+        acc = acc + x[w]
+    return acc
+
+
+def worker_mean(tree):
+    """The mean over the leading worker axis of every leaf (``pmean``):
+    the f32 sum in worker order divided by N, in the leaf's dtype.  At
+    N=1 it is the one worker's value, bit for bit."""
+    return tree_map(
+        lambda x: (worker_sum(x.float()) / x.shape[0]).to(x.dtype), tree)
+
+
+def replicate_for_workers(tree, n: int):
+    """Stack ``n`` copies of every leaf along a new leading axis (real
+    copies, not ``expand`` views)."""
+    return tree_map(lambda x: torch.stack([x] * n), tree)
+
+
+def worker_slice(tree, w: int):
+    """Worker ``w``'s leaves of a tree with a leading worker axis."""
+    return tree_map(lambda x: x[w], tree)
+
+
+# ---------------------------------------------------------------------------
+# LEGACY research harness (the JAX package's ``worker_train_fn``).  The
+# worker route is ``train/step.py::make_worker_superstep``; this one is
+# kept because its chaos flavour is the other point of the staleness
+# design space (own gradient now, the others' one step late, all at each
+# worker's own weights).
+# ---------------------------------------------------------------------------
+def worker_train_fn(loss_fn: Callable, lr_fn: Callable, sync: SyncConfig,
+                    n_workers: int):
+    """One step of ``n_workers`` emulated workers, each holding its OWN
+    params (the JAX package wraps its step in ``shard_map`` over a 1-D
+    mesh; here the workers are a leading axis).
+
+    ``state = {"params", "prev_grad"?, "step"}``: params (and chaos'
+    ``prev_grad``) carry a leading worker axis, ``step`` is a host int;
+    ``batch`` leaves carry a leading worker axis too.  Sync behaviour:
+      bsp      - the mean gradient over the workers, workers stay identical
+      chaos    - own gradient / N now + the others' gradients one step late
+      localsgd - local SGD; parameters averaged every ``local_steps``
+    Returns ``(new_state, metrics)``, the metrics averaged over workers."""
+    from repro_torch.models.api import value_and_grad
+
+    if sync.mode not in ("bsp", "chaos", "localsgd"):
+        raise ValueError(sync.mode)
+    n = n_workers
+
+    def step(state, batch):
+        params = state["params"]
+        lr = lr_fn(state["step"])
+        outs = [value_and_grad(
+            lambda p, w=w: loss_fn(p, {k: v[w] for k, v in batch.items()}),
+            worker_slice(params, w)) for w in range(n)]
+        grads = tree_map(lambda *g: torch.stack(g), *[o[2] for o in outs])
+        new_state = dict(state)
+        if sync.mode == "bsp":
+            g = worker_mean(grads)
+            new_state["params"] = tree_map(lambda p, gg: p - lr * gg,
+                                           params, g)
+        elif sync.mode == "chaos":
+            prev = state["prev_grad"]
+            total = tree_map(worker_sum, prev)
+            remote_stale = tree_map(lambda t, s: (t - s) / n, total, prev)
+            new_state["params"] = tree_map(
+                lambda p, gl, rs: p - lr * (gl / n + rs),
+                params, grads, remote_stale)
+            new_state["prev_grad"] = grads
+        else:
+            local = tree_map(lambda p, gg: p - lr * gg, params, grads)
+            new_state["params"] = (
+                replicate_for_workers(worker_mean(local), n)
+                if (state["step"] + 1) % sync.local_steps == 0 else local)
+        new_state["step"] = state["step"] + 1
+        metrics = {**{k: torch.stack([o[1][k] for o in outs])
+                      for k in outs[0][1]},
+                   "loss": torch.stack([o[0] for o in outs])}
+        return new_state, worker_mean(metrics)
+
+    return step
+

@@ -140,3 +140,23 @@ class ImagePipeline:
         ``superstep_at(step, k)``."""
         return worker_slice(self.superstep_at(step, k), self.batch,
                             n_workers, worker)
+
+    def worker_batches(self, step: int, n_workers: int, per_worker: int):
+        """Paper-style shared queue: worker w takes samples
+        queue[w::n_workers] of a per-step permutation, so a worker that
+        finishes early takes the next image; no static split.  Leaves are
+        (n_workers, per_worker, ...)."""
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, step]))
+        order = rng.permutation(len(self.images))
+        need = n_workers * per_worker
+        order = np.resize(order, need)
+        idx = order.reshape(per_worker, n_workers).T  # w-th row: its picks
+        return {"images": self.images[idx], "labels": self.labels[idx]}
+
+    def epochs(self, n_epochs: int, n_workers: int):
+        """One ``worker_batches`` draw per epoch, each worker taking
+        len(images) // n_workers samples."""
+        per_worker = len(self.images) // n_workers
+        for ep in range(n_epochs):
+            yield self.worker_batches(ep, n_workers, per_worker)

@@ -124,7 +124,7 @@ def get_ops(cfg: ArchConfig, device="cuda") -> ModelOps:
         batch = _to_device(batch, device)
         if tape is not None:
             return cnn.loss_and_bucket_grads(params, batch, cfg, tape)
-        return _autograd(lambda p: cnn.loss_fn(p, batch, cfg), params)
+        return value_and_grad(lambda p: cnn.loss_fn(p, batch, cfg), params)
 
     return ModelOps(
         cfg=cfg, device=device,
@@ -145,7 +145,7 @@ def _to_device(batch, device):
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
-def _autograd(loss_fn, params):
+def value_and_grad(loss_fn, params):
     """(loss, metrics, grads) of ``loss_fn(params) -> (loss, metrics)``:
     one ``torch.autograd.grad`` over every leaf of the params tree."""
     leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
@@ -164,7 +164,7 @@ def _lm_ops(cfg: ArchConfig, device: torch.device, dtype) -> ModelOps:
     offset, ``prefill`` of right-padded prompts)."""
     def loss_and_grads(params, batch, tape=None, use_kernel=True):
         batch = _to_device(batch, device)
-        loss, metrics, grads = _autograd(
+        loss, metrics, grads = value_and_grad(
             lambda p: lm.loss_fn(p, batch, cfg, use_kernel), params)
         if tape is None:
             return loss, metrics, grads

@@ -1,8 +1,9 @@
-"""Train step builders of the port (counterpart of ``repro.train.step``),
-single-instance part.
+"""Train step builders of the port (counterpart of ``repro.train.step``).
 
 ``make_train_step(cfg, sync)``  -> step(state, batch) -> (state, metrics)
 ``make_superstep(cfg, sync)``   -> K steps over a stacked (K, B, ...) batch
+``make_worker_train_step(cfg, sync, worker)``, ``make_worker_superstep``,
+``init_worker_state``           -> the same over N emulated workers
 
 Synchronization behaviour is delegated to ``train/sync.py``: this module
 builds the ``StepContext`` and the strategy supplies the step body, with
@@ -17,17 +18,28 @@ returns a new state and leaves the one it was given as it was.
 ``make_superstep`` is a loop of K steps (the JAX package's ``lax.scan``);
 it computes exactly what K calls of the step compute.  Every entry point
 runs on ``cuda`` unless the caller passes ``device="cpu"``.
+
+The worker route runs N workers in one process on one device, where the
+JAX package runs them under ``shard_map`` on forced host devices: worker
+w owns the contiguous micro-shards [w·S/N, (w+1)·S/N) of the global batch
+(S = ``WorkerConfig.logical_shards``), every micro-shard runs the model's
+kernels at the per-shard batch B/S, and the collectives of
+``core/chaos.py`` reduce over the workers in a fixed order.  State that
+differs between workers carries a leading ``(N, ...)`` axis.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from repro_torch.core.chaos import SyncConfig
+from repro_torch.core.chaos import (SyncConfig, gathered_shard_mean,
+                                    replicate_for_workers, worker_slice)
 from repro_torch.core.schedule import make_lr_fn
 from repro_torch.core.tree import tree_map
-from repro_torch.core.types import ArchConfig
+from repro_torch.core.types import ArchConfig, WorkerConfig
 from repro_torch.models.api import get_ops
-from repro_torch.optim import adamw, sgd
+from repro_torch.optim import Optimizer, adamw, sgd
 from repro_torch.train.sync import StepContext, get_strategy
 
 
@@ -105,6 +117,11 @@ def make_train_step(cfg: ArchConfig, sync: SyncConfig, optimizer=None,
         raise NotImplementedError(
             f"training of the {cfg.family!r} family ({cfg.name}) is not yet "
             f"ported to repro_torch")
+    if sync.axis_name is not None:
+        raise ValueError(
+            f"sync.axis_name={sync.axis_name!r} names the worker axis of "
+            f"the worker route (make_worker_train_step); one instance has "
+            f"none")
     optimizer = optimizer or make_optimizer(cfg)
     strat = get_strategy(sync)
     if sync.layerwise:
@@ -214,8 +231,12 @@ def make_superstep(cfg: ArchConfig, sync: SyncConfig, optimizer=None,
 
     ``batches`` is a stacked (K, B, ...) dict (``pipeline.superstep_at``);
     the K steps run in a loop and the metrics come back stacked (K,)."""
-    step = make_train_step(cfg, sync, optimizer, device)
+    return _loop(make_train_step(cfg, sync, optimizer, device))
 
+
+def _loop(step):
+    """K calls of ``step`` over a stacked (K, B, ...) batch; the metrics
+    stacked (K,)."""
     def superstep(state, batches):
         k = len(next(iter(batches.values())))
         per_step = []
@@ -226,3 +247,173 @@ def make_superstep(cfg: ArchConfig, sync: SyncConfig, optimizer=None,
                        for n in per_step[0]}
 
     return superstep
+
+
+# ---------------------------------------------------------------------------
+# The worker route
+# ---------------------------------------------------------------------------
+def _per_worker(optimizer, n: int) -> Optimizer:
+    """``optimizer`` applied to each of ``n`` workers' slices of
+    worker-stacked params, gradients and state, and the results stacked
+    again: adamw's clip sees one worker's gradients, as under shard_map."""
+    def lift(fn):
+        def apply(params, grads, state, step):
+            outs = [fn(worker_slice(params, w), worker_slice(grads, w),
+                       worker_slice(state, w), step) for w in range(n)]
+            return tuple(tree_map(lambda *xs: torch.stack(xs),
+                                  *[o[i] for o in outs]) for i in range(2))
+        return apply
+
+    pre_apply = None
+    if optimizer.pre_apply is not None:
+        def pre_apply(grads):
+            outs = [optimizer.pre_apply(worker_slice(grads, w))
+                    for w in range(n)]
+            return tree_map(lambda *xs: torch.stack(xs), *outs)
+
+    return Optimizer(init=optimizer.init, apply=lift(optimizer.apply),
+                     pre_apply=pre_apply, apply_raw=lift(optimizer.apply_raw))
+
+
+def make_worker_train_step(cfg: ArchConfig, sync: SyncConfig,
+                           worker: WorkerConfig, optimizer=None,
+                           device="cuda"):
+    """Returns step(state, batch) -> (new_state, metrics) over
+    ``worker.workers`` emulated workers, with ``state`` in
+    ``init_worker_state``'s layout and ``batch`` the GLOBAL batch.
+
+    Worker w's micro-shards are the contiguous lanes of shards [w·S/N,
+    (w+1)·S/N), each of B/S examples (identical shapes for every N); each
+    runs the model's forward and backward at its worker's params, and the
+    gradients are cast to f32 and stacked ``(S, ...)`` in shard order (the
+    JAX package's per-worker ``lax.map``).  The strategy's collectives
+    come through the StepContext:
+
+      combine     - ``gathered_shard_mean``: one fixed-shape sum over S
+      local_mean  - each worker's mean over its own shards (sum / (S/N))
+      local_frac  - each worker's term of the global mean (sum · (1/S))
+    """
+    ops = get_ops(cfg, device)
+    if ops.loss_and_grads is None:
+        raise NotImplementedError(
+            f"training of the {cfg.family!r} family ({cfg.name}) is not yet "
+            f"ported to repro_torch")
+    optimizer = optimizer or make_optimizer(cfg)
+    if cfg.micro_batches > 1:
+        raise NotImplementedError(
+            "cfg.micro_batches is not consulted on the worker route: the "
+            "logical-shard decomposition IS the micro-batching here "
+            "(per-shard batch = B / logical_shards); raise "
+            "WorkerConfig.logical_shards instead")
+    if sync.interleave:
+        raise NotImplementedError(
+            "sync.interleave (the layerwise shard tape of the overlap "
+            "harness) is not yet ported to repro_torch")
+    if sync.axis_name != worker.axis:
+        sync = dataclasses.replace(sync, axis_name=worker.axis)
+    strat = get_strategy(sync)
+    N, S = worker.workers, worker.logical_shards
+    s_local = worker.shards_per_worker
+    stacked = strat.stacked_state
+
+    def shard_grads(params, batch):
+        """(losses, metrics, grads), each stacked (S, ...) over the
+        micro-shards in global order.  Per-shard shapes do not depend on
+        N, so per-shard values are bit-identical for every worker count."""
+        size = len(next(iter(batch.values())))
+        worker.validate_batch(size)
+        per = size // S
+        outs = []
+        for s in range(S):
+            p = worker_slice(params, s // s_local) if stacked else params
+            loss, metrics, grads = ops.loss_and_grads(
+                p, {k: v[s * per:(s + 1) * per] for k, v in batch.items()})
+            outs.append(({**metrics, "loss": loss},
+                         tree_map(lambda t: t.float(), grads)))
+        packed = tree_map(lambda *xs: torch.stack(xs), *[o[0] for o in outs])
+        grads = tree_map(lambda *xs: torch.stack(xs), *[o[1] for o in outs])
+        return packed.pop("loss"), packed, grads
+
+    def workers_of(tree):
+        """The N workers' (S/N, ...) stacks of an (S, ...) tree."""
+        return [tree_map(lambda x: x[w * s_local:(w + 1) * s_local], tree)
+                for w in range(N)]
+
+    def per_worker_sum(scale):
+        # f32 like gathered_shard_mean (the compressed stacks arrive bf16);
+        # at N=1 the one sum is gathered_shard_mean's, bit for bit
+        return lambda tree: tree_map(
+            lambda *xs: torch.stack([scale(torch.sum(x.float(), 0))
+                                     for x in xs]), *workers_of(tree))
+
+    ctx = StepContext(
+        optimizer=_per_worker(optimizer, N) if stacked else optimizer,
+        grad_fn=shard_grads,
+        # the (S, ...) stack is already the workers' stacks in worker
+        # order, so it passes as one piece (no split and re-concatenation)
+        combine=lambda t: gathered_shard_mean([t], S),
+        local_mean=per_worker_sum(lambda x: x / s_local),
+        # sum * (1/S), not sum / S: gathered_shard_mean multiplies by the
+        # reciprocal, so the hogwild remote term is exactly 0 when every
+        # shard is local (chaos at N=1 is bsp for any logical_shards)
+        local_frac=per_worker_sum(lambda x: x * (1.0 / S)),
+        explicit_workers=True)
+
+    if sync.layerwise:
+        spec = ops.bucket_spec()
+
+        def bucket_step(state, batch):
+            # collect-then-walk: the stacked gradients first, then each
+            # bucket's own exchange and update in reverse-production order
+            exchange_bucket, finish = strat.bucket_exchange(
+                ctx, state["sync"], state["step"])
+            losses, metrics, grads = ctx.grad_fn(state["params"], batch)
+            new_params, new_opt = _bucket_walk(
+                spec, ctx.optimizer, exchange_bucket, state["params"],
+                state["opt"], grads, state["step"])
+            new_sync = finish(grads)
+            new_params, new_sync = strat.boundary(ctx, new_params, new_sync,
+                                                  state["step"])
+            return strat.finish_step(ctx, state, new_params, new_opt,
+                                     new_sync, losses, metrics)
+
+        return bucket_step
+
+    def step(state, batch):
+        return strat.step(ctx, state, batch)
+
+    return step
+
+
+def init_worker_state(cfg: ArchConfig, generator: torch.Generator,
+                      sync: SyncConfig, worker: WorkerConfig, optimizer=None,
+                      device="cuda"):
+    """Train state of the worker route.  Strategies whose workers stay
+    provably identical (bsp, chaos τ=0) keep UNSTACKED state, the layout of
+    a single instance, which makes it worker-count-invariant.  Strategies
+    whose workers diverge (localsgd, chaos τ>=1) stack params and optimizer
+    state ``(N, ...)``.  Sync keys follow ``worker_sync_layout()``:
+    "worker" keys are ``(N, ...)``, "shard" keys (the compression
+    residual) ``(logical_shards, ...)``.  ``step`` stays a host int."""
+    strat = get_strategy(sync)
+    state = init_train_state(cfg, generator, sync, optimizer, device)
+    layout = strat.worker_sync_layout()
+    rows = {"worker": worker.workers, "shard": worker.logical_shards}
+    state["sync"] = {k: (replicate_for_workers(v, rows[layout[k]])
+                         if k in layout else v)
+                     for k, v in state["sync"].items()}
+    if strat.stacked_state:
+        for k in ("params", "opt"):
+            state[k] = replicate_for_workers(state[k], worker.workers)
+    return state
+
+
+def make_worker_superstep(cfg: ArchConfig, sync: SyncConfig,
+                          worker: WorkerConfig, optimizer=None,
+                          device="cuda"):
+    """Returns superstep(state, batches) -> (new_state, metrics) over the
+    worker route: K worker steps over the GLOBAL stacked (K, B, ...) batch
+    (worker w's lanes are ``pipeline.worker_superstep_at(step, K, N, w)``);
+    the metrics come back stacked (K,)."""
+    return _loop(make_worker_train_step(cfg, sync, worker, optimizer,
+                                        device))

@@ -1,5 +1,5 @@
 """Pluggable synchronization-strategy engine of the port (counterpart of
-``repro.train.sync``), single-instance paths.
+``repro.train.sync``).
 
 Every gradient-synchronization mode is one strategy class registered here
 by name.  The step builders in ``train/step.py`` are strategy-agnostic:
@@ -10,6 +10,15 @@ outside this module.
 Protocol (one strategy instance per ``SyncConfig``):
 
 ``init_state(params)``      sync buffers carried in ``state["sync"]``
+``stacked_state``           worker-route layout: False = workers provably
+                            identical, state unstacked (worker-count-
+                            invariant); True = per-worker state with a
+                            leading ``(N, ...)`` axis
+``worker_sync_layout()``    per top-level sync key: ``"worker"`` (leading
+                            ``(N, ...)`` axis), ``"shard"`` (leading
+                            ``(logical_shards, ...)`` axis, worker-count-
+                            invariant: the compression residual) or
+                            unstacked
 ``step(ctx, state, batch)`` the full train-step body
 ``boundary(ctx, params, sync_state, step) -> (params, sync_state)``
                             end-of-step parameter hook (localsgd's K-step
@@ -24,8 +33,10 @@ Protocol (one strategy instance per ``SyncConfig``):
                             returns the new sync state
 
 Registered strategies: ``bsp``, ``chaos`` (τ=0 resolves to the bsp object
-itself) and ``localsgd``.  The worker mesh (``ctx.explicit_workers``) is
-not yet ported and raises.
+itself) and ``localsgd``.  The same strategy objects serve one instance
+and the worker route (``ctx.explicit_workers``); the step context
+supplies the collectives (``core/chaos.py``).  ``shard_view`` (a
+``PartitionSpec``) has no counterpart without a device mesh.
 
 ``step`` is a host int in the port's train state (the JAX package carries a
 device int32 in its scan carry), so the ring slot ``step % τ`` and the
@@ -41,7 +52,8 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core.chaos import (SyncConfig, compress_grads, dtype_named,
-                                    localsgd_average, zeros_like_f32)
+                                    localsgd_average, worker_mean,
+                                    zeros_like_f32)
 from repro_torch.core.tree import tree_map
 
 STRATEGIES: dict = {}
@@ -75,24 +87,25 @@ def _identity(tree):
 class StepContext:
     """Execution-path plumbing handed to a strategy.
 
-    ``grad_fn(params, batch) -> (loss, metrics, grads)``; ``combine`` maps
-    local gradients to the global mean, ``local_mean`` to the mean over
-    this worker's data (both the identity on one instance).
-    ``explicit_workers`` selects the worker mesh, which is not yet ported,
-    and with it the mesh's other reducers.
+    The same strategy classes serve one instance and the worker route;
+    what differs is how gradients are produced and reduced:
+
+    ``grad_fn(params, batch) -> (losses, metrics, grads)``: one instance,
+      a scalar loss and one gradient tree; the worker route,
+      ``(logical_shards, ...)`` stacks of per-micro-shard values.
+    ``combine``     local grads -> the GLOBAL mean over every shard
+                    (identity on one instance; the worker-count-invariant
+                    ``gathered_shard_mean`` on the worker route).
+    ``local_mean``  local grads -> each worker's mean over its own shards.
+    ``local_frac``  local grads -> each worker's additive term of the
+                    global mean (its shard sum times 1/logical_shards).
     """
     optimizer: object
     grad_fn: Optional[Callable] = None
     combine: Callable = _identity
     local_mean: Callable = _identity
+    local_frac: Callable = _identity
     explicit_workers: bool = False
-
-
-def _single_instance(ctx: StepContext) -> None:
-    if ctx.explicit_workers:
-        raise NotImplementedError(
-            "the explicit worker mesh (ctx.explicit_workers=True) is not yet "
-            "ported to repro_torch")
 
 
 # ---------------------------------------------------------------------------
@@ -124,7 +137,8 @@ class BspStrategy:
     on the critical path of every update."""
 
     name = "bsp"
-    workers_identical = True
+    stacked_state = False     # worker route: state unstacked
+    workers_identical = True  # metrics reduce with the same fixed-shape mean
 
     def __init__(self, sync: SyncConfig):
         self.sync = sync
@@ -137,22 +151,39 @@ class BspStrategy:
             return {"residual": zeros_like_f32(params)}
         return {}
 
+    def worker_sync_layout(self) -> dict:
+        """Worker-route layout per top-level sync-state key.  The
+        compression residual is SHARD-stacked (leading
+        ``(logical_shards, ...)`` axis): the quantisation error is carried
+        per micro-shard, so the compressed exchange and its residual are
+        bit-identical for every worker count dividing logical_shards."""
+        return {"residual": "shard"} if self.sync.compress else {}
+
     # -- shared pieces --------------------------------------------------
     def _maybe_compress(self, ctx: StepContext, grads, sync_state):
-        """bf16-quantise the exchanged gradients with error feedback; on
-        one instance the quantised values are upcast at once."""
+        """bf16-quantise the exchanged gradients with error feedback.  On
+        the worker route the quantised values stay bf16, so the gather
+        moves half the bytes (``gathered_shard_mean`` upcasts before its
+        sum); on one instance they are upcast at once."""
         new_sync = dict(sync_state)
         if self.sync.compress:
             grads, new_sync["residual"] = compress_grads(
                 grads, sync_state["residual"])
-            grads = tree_map(lambda g: g.float(), grads)
+            if not ctx.explicit_workers:
+                grads = tree_map(lambda g: g.float(), grads)
         return grads, new_sync
 
     def finish_step(self, ctx: StepContext, state, new_params, new_opt,
                     new_sync, losses, metrics):
         packed = {**metrics, "loss": losses}
-        packed = (ctx.combine(packed) if self.workers_identical
-                  else ctx.local_mean(packed))
+        if self.workers_identical:
+            # the gradients' fixed-shape reduction: logged losses are
+            # worker-count-invariant too
+            packed = ctx.combine(packed)
+        else:
+            packed = ctx.local_mean(packed)
+            if ctx.explicit_workers:
+                packed = worker_mean(packed)
         new_state = {"params": new_params, "opt": new_opt, "sync": new_sync,
                      "step": state["step"] + 1}
         return new_state, packed
@@ -171,7 +202,6 @@ class BspStrategy:
 
     # -- the step body ---------------------------------------------------
     def step(self, ctx: StepContext, state, batch):
-        _single_instance(ctx)
         losses, metrics, grads = ctx.grad_fn(state["params"], batch)
         grads, new_sync = self._maybe_compress(ctx, grads, state["sync"])
         g = self._reduce(ctx, grads)
@@ -184,11 +214,10 @@ class BspStrategy:
 
     # -- per-bucket exchange (the layerwise path) -------------------------
     def bucket_exchange(self, ctx: StepContext, sync_state, step: int):
-        _single_instance(ctx)
         residual_out: dict = {}
 
         def exchange_bucket(bucket, g_b):
-            g_b = self._compress_bucket(bucket, g_b, sync_state,
+            g_b = self._compress_bucket(ctx, bucket, g_b, sync_state,
                                         residual_out)
             return self._reduce(ctx, g_b)
 
@@ -198,12 +227,15 @@ class BspStrategy:
 
         return exchange_bucket, finish
 
-    def _compress_bucket(self, bucket, g_b, sync_state, residual_out):
+    def _compress_bucket(self, ctx: StepContext, bucket, g_b, sync_state,
+                         residual_out):
         if not self.sync.compress:
             return g_b
         g_b, new_res = compress_grads(g_b, bucket.view(sync_state["residual"]))
         residual_out.update(new_res)
-        return tree_map(lambda g: g.float(), g_b)
+        if not ctx.explicit_workers:
+            g_b = tree_map(lambda g: g.float(), g_b)
+        return g_b
 
     def _merge_residual(self, sync_state, residual_out):
         new_sync = dict(sync_state)
@@ -219,12 +251,14 @@ class LocalSGDStrategy(BspStrategy):
 
     ``SyncConfig.staleness`` counts boundaries here.  τ=0 is the blocking
     K-boundary average (``localsgd_average``).  τ>=1 keeps a τ-deep ring
-    of stale corrections: at boundary m each replica computes
+    of stale corrections: at boundary m each worker computes
     ``mean(params) - params``, writes it into slot m % τ and applies the
     correction written at boundary m - τ.  On one instance the mean is the
-    params themselves, so every correction is zero."""
+    params themselves, so every correction is zero.  Workers diverge
+    between boundaries, so worker-route state is stacked."""
 
     name = "localsgd"
+    stacked_state = True
     workers_identical = False
 
     def _tau(self) -> int:
@@ -235,6 +269,12 @@ class LocalSGDStrategy(BspStrategy):
         if self._tau() >= 1:
             st["lsring"] = init_ring(params, self._tau(), self._ring_dtype())
         return st
+
+    def worker_sync_layout(self) -> dict:
+        layout = super().worker_sync_layout()
+        if self._tau() >= 1:
+            layout["lsring"] = "worker"
+        return layout
 
     def _reduce(self, ctx: StepContext, grads):
         return ctx.local_mean(grads)
@@ -262,10 +302,19 @@ class ChaosStrategy(BspStrategy):
 
     τ = ``SyncConfig.staleness``.  τ=0 never reaches this class:
     ``resolve()`` hands back a ``BspStrategy``, so chaos(τ=0) is bsp by
-    construction.  On one instance the peers are the implicit reduction,
-    so the whole combined gradient is applied τ steps late."""
+    construction.
+
+    τ>=1, worker route (``ctx.explicit_workers``): each worker computes
+    gradients at its OWN weights and applies, in the same step, its own
+    additive term of the global mean plus the τ-step-stale remote terms
+    from the ring: local updates are instant, the other workers' updates
+    fold in late.  Workers diverge, so state is worker-stacked.
+
+    τ>=1, one instance: the peers are the implicit reduction, so the whole
+    combined gradient is applied τ steps late."""
 
     name = "chaos"
+    stacked_state = True       # τ>=1 worker route: workers diverge
     workers_identical = False
 
     def resolve(self) -> "SyncStrategy":
@@ -280,8 +329,15 @@ class ChaosStrategy(BspStrategy):
             st["residual"] = zeros_like_f32(params)
         return st
 
+    def worker_sync_layout(self) -> dict:
+        layout = {"hist": "worker"}
+        if self.sync.compress:
+            layout["residual"] = "shard"
+        return layout
+
     def step(self, ctx: StepContext, state, batch):
-        _single_instance(ctx)
+        if ctx.explicit_workers:
+            return self._hogwild_step(ctx, state, batch)
         return self._delayed_step(ctx, state, batch)
 
     def _delayed_step(self, ctx: StepContext, state, batch):
@@ -299,22 +355,49 @@ class ChaosStrategy(BspStrategy):
         return self.finish_step(ctx, state, new_params, new_opt, new_sync,
                                 losses, metrics)
 
+    def _hogwild_step(self, ctx: StepContext, state, batch):
+        """Worker route: own term instant + remote terms τ steps stale.
+        With compression the per-shard quantised gradients feed both the
+        own term and the gathered exchange, so the residual stays
+        worker-count-invariant (shard-stacked)."""
+        tau = self.sync.staleness
+        hist = state["sync"]["hist"]
+        losses, metrics, grads = ctx.grad_fn(state["params"], batch)
+        grads, new_sync = self._maybe_compress(ctx, grads, state["sync"])
+        own = ctx.local_frac(grads)
+        stale_remote = ring_read(hist, state["step"], tau)
+        g = tree_map(lambda o, s: o + s.float(), own, stale_remote)
+        new_params, new_opt = ctx.optimizer.apply(
+            state["params"], g, state["opt"], state["step"])
+        # this step's remote term: the gathered global mean minus the own
+        # term; it feeds only the ring, never this step's update
+        remote_now = tree_map(lambda a, o: a - o, ctx.combine(grads), own)
+        new_sync["hist"] = ring_write(hist, state["step"], tau, remote_now)
+        return self.finish_step(ctx, state, new_params, new_opt, new_sync,
+                                losses, metrics)
+
     def bucket_exchange(self, ctx: StepContext, sync_state, step: int):
         """Layerwise chaos (paper §3 order): the forward runs at the
         pre-update weights; during backprop each bucket applies, the moment
-        its fresh gradient exists, the τ-step-stale exchange, and the fresh
-        exchange enters the ring for step t+τ bucket by bucket."""
-        _single_instance(ctx)
+        its fresh gradient exists, the τ-step-stale exchange (on the worker
+        route plus the worker's own instant term), and the fresh exchange
+        enters the ring for step t+τ bucket by bucket."""
         tau = self.sync.staleness
         stale = ring_read(sync_state["hist"], step, tau)
         residual_out: dict = {}
         fresh: dict = {}
 
         def exchange_bucket(bucket, g_b):
-            g_b = self._compress_bucket(bucket, g_b, sync_state,
+            g_b = self._compress_bucket(ctx, bucket, g_b, sync_state,
                                         residual_out)
+            stale_b = bucket.view(stale)
+            if ctx.explicit_workers:
+                own = ctx.local_frac(g_b)
+                fresh.update(tree_map(lambda a, o: a - o, ctx.combine(g_b),
+                                      own))
+                return tree_map(lambda o, s: o + s.float(), own, stale_b)
             fresh.update(ctx.combine(g_b))
-            return bucket.view(stale)
+            return stale_b
 
         def finish(grads):
             del grads

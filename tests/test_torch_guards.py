@@ -23,8 +23,11 @@ from repro_torch.launch.serve import serve, serve_trace
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.core.chaos import SyncConfig
 from repro_torch.models import api
-from repro_torch.train.step import (init_train_state, make_superstep,
-                                    make_train_step)
+from repro_torch.core.types import WorkerConfig
+from repro_torch.train.step import (init_train_state, init_worker_state,
+                                    make_superstep, make_train_step,
+                                    make_worker_superstep,
+                                    make_worker_train_step)
 
 torch.set_num_threads(1)
 
@@ -60,6 +63,33 @@ def test_get_ops_without_device_raises_without_cuda(monkeypatch):
             build_fn(cfg, SyncConfig("bsp"))
     assert api.get_ops(configs.get("chaos-small"), device="cpu").device == \
         torch.device("cpu")
+
+
+def test_worker_route_defaults_to_cuda_and_raises_without_a_card(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get("chaos-small")
+    worker = WorkerConfig(workers=2)
+    for sync in (SyncConfig("bsp"), SyncConfig("chaos", staleness=1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_worker_state(cfg, torch.Generator(), sync, worker)
+        for build_fn in (make_worker_train_step, make_worker_superstep):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                build_fn(cfg, sync, worker)
+
+
+def test_cpu_worker_route_leaves_every_launch_count_at_zero():
+    kops.reset_launch_counts()
+    cfg = configs.get("chaos-small")
+    worker = WorkerConfig(workers=2, logical_shards=2)
+    images, labels = make_dataset(4, seed=0)
+    for sync in (SyncConfig("bsp"), SyncConfig("chaos", layerwise=True)):
+        state = init_worker_state(cfg, torch.Generator().manual_seed(0),
+                                  sync, worker, device="cpu")
+        state, m = make_worker_superstep(cfg, sync, worker, device="cpu")(
+            state, {"images": images[None], "labels": labels[None]})
+        assert np.isfinite(m["loss"].numpy()).all()
+    assert set(kops.launch_counts().values()) == {0}
 
 
 @pytest.mark.parametrize("name", ["chaos-small", "chaos-large"])

@@ -4,7 +4,7 @@ the port's ``make_train_step`` and the reference's jitted one on its XLA
 path, for every sync mode and option the slice carries; then the
 reference's own contracts re-established inside the port (K-step superstep
 = K steps, chaos τ=0 is the bsp object, layerwise bsp+SGD = batched bsp,
-staleness), and the parts not yet ported raising."""
+staleness), and what the worker route does not yet carry raising."""
 import dataclasses
 import re
 from pathlib import Path
@@ -20,11 +20,12 @@ from repro.data.pipeline import ImagePipeline as RefImagePipeline
 from repro.train import step as ref_step
 from repro_torch import bridge, configs
 from repro_torch.core.chaos import SyncConfig, init_sync_state
+from repro_torch.core.types import WorkerConfig
 from repro_torch.data.mnist import make_dataset
 from repro_torch.data.pipeline import ImagePipeline
 from repro_torch.optim import sgd
 from repro_torch.train import step as TS
-from repro_torch.train.sync import (BspStrategy, ChaosStrategy, StepContext,
+from repro_torch.train.sync import (BspStrategy, ChaosStrategy,
                                     get_strategy, sync_modes)
 
 torch.set_num_threads(1)
@@ -240,16 +241,24 @@ def test_step_builders_have_no_mode_branches():
 
 
 def test_worker_mesh_is_not_yet_ported():
-    cfg, opt, state = _setup(SyncConfig("bsp"))
-    ctx = StepContext(optimizer=opt, explicit_workers=True)
-    for sync in (SyncConfig("bsp"), SyncConfig("chaos", staleness=1)):
-        strat = get_strategy(sync)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            strat.step(ctx, state, None)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            strat.bucket_exchange(ctx, strat.init_state(state["params"]), 0)
+    """The worker route runs (tests/test_torch_workers*.py); what it does
+    not yet carry raises: the overlap harness's latency injection, its
+    interleaved shard tape, and micro-batches (the reference raises on
+    those too)."""
+    cfg, opt, _ = _setup(SyncConfig("bsp"))
+    worker = WorkerConfig(workers=2)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         SyncConfig("chaos", collective_delay_ns_per_byte=0.5)
+    for sync in (SyncConfig("bsp", layerwise=True, interleave=True),
+                 SyncConfig("chaos", interleave=True)):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            TS.make_worker_train_step(cfg, sync, worker, opt, device="cpu")
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            TS.make_worker_superstep(cfg, sync, worker, opt, device="cpu")
+    micro = dataclasses.replace(cfg, micro_batches=2)
+    with pytest.raises(NotImplementedError, match="micro_batches"):
+        TS.make_worker_train_step(micro, SyncConfig("bsp"), worker, opt,
+                                  device="cpu")
 
 
 def test_step_leaves_its_input_state_as_it_was():
