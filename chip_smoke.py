@@ -65,6 +65,25 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
    step's (CUDA events around each superstep of 4, median of 5 after a
    warm-up) with the device's busy share over one superstep
    (torch.profiler), the card's name and power limit on each line.
+4c. The driver: ``launch/train.py``'s ``train`` on ``cuda`` for
+   chaos-large, 16 bsp steps of 256 as supersteps of 4 with a checkpoint
+   every 8, counts from 0 around the run (exactly 15 launches a step),
+   losses bit-identical to four direct ``make_superstep`` calls on
+   ``make_pipeline``'s batches from the same state; the CLI in a
+   subprocess dying at step 8 (exit code 17), its step-8 checkpoint
+   restored on the CPU and continued 2 steps on the plain path (within
+   TRAIN_LOSS_ATOL of the card's steps 8-9), then resumed to 16 (it prints
+   "resumed from step 8"; steps 8-15 bit-identical to the uninterrupted
+   run, the final checkpoints' leaves too); the worker-route preemption
+   smoke (N=4 on 8 micro-shards, supersteps of 2): ``kill@8:to=2`` resizes
+   4 -> 2 in-memory with losses equal to the base run's, with
+   ``resizefail@8`` through the checkpoint rung, still equal, and chaos
+   τ=1 with the kill runs to its end.  Times, with the card's name and
+   power limit on each line: the driver's ms a step and steps/s at K=1 and
+   K=8 beside direct ``make_superstep`` calls, one driver superstep's busy
+   share (torch.profiler), the blocking save's ms and bytes and the
+   restore's ms for the bsp state and the chaos τ=1 state at N=4, and the
+   in-memory resize's latency.
 5. Times: each kernel at the training step's shapes against its plain
    version, one PyTorch library call for the same function (a yardstick
    the port never calls) and its bound on the card, by CUDA events,
@@ -584,6 +603,22 @@ WORKER_COUNTS = (1, 2, 4)
 WORKER_PER_STEP = {k: v * WORKER_SHARDS for k, v in LARGE_PER_STEP.items()}
 #: Supersteps timed at each worker count after one warm-up.
 WORKER_TIMED = 5
+#: Phase 4c, the driver (``launch/train.py``): chaos-large at B=BATCH for
+#: DRIVER_STEPS steps as supersteps of DRIVER_K, a checkpoint every
+#: DRIVER_CKPT_EVERY steps, the preempted run dying at DRIVER_DIE_AT.
+DRIVER_STEPS = 16
+DRIVER_K = 4
+DRIVER_CKPT_EVERY = 8
+DRIVER_DIE_AT = 8
+#: The worker-route preemption smoke: N=4 on WORKER_SHARDS micro-shards,
+#: supersteps of 2, a worker killed at step DRIVER_DIE_AT.
+DRIVER_WORKERS = dict(workers=4, logical_shards=WORKER_SHARDS, superstep=2)
+#: Steps the driver and the direct calls are timed over, by K; the first
+#: DRIVER_WARMUP supersteps of each run are left out (the watchdog's too).
+DRIVER_TIMED = {1: 32, 8: 64}
+DRIVER_WARMUP = 2
+#: Blocking saves and restores timed per state.
+CKPT_TIMED = 3
 
 
 def phase(name):
@@ -1238,6 +1273,297 @@ def worker_times(torch, images, labels):
               f"{lo:.4f}-{hi:.4f}), device busy "
               + ("not measured (no device events)" if busy is None
                  else f"{busy * 100:.2f} %") + f"; card {card}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 4c: the driver
+# ---------------------------------------------------------------------------
+def direct_superstep(torch, cfg, steps, device):
+    """The driver's bsp run without the driver: ``make_superstep`` from the
+    same initial state and optimizer.  Returns (state, superstep, the
+    pipeline)."""
+    from repro_torch.core.chaos import SyncConfig
+    from repro_torch.launch import train as TR
+    from repro_torch.train.step import (init_train_state, make_optimizer,
+                                        make_superstep)
+
+    sync = SyncConfig("bsp")
+    opt = make_optimizer(cfg, total_steps=steps)
+    state = init_train_state(cfg, torch.Generator().manual_seed(0), sync,
+                             opt, device=device)
+    return (state, make_superstep(cfg, sync, opt, device=device),
+            TR.make_pipeline(cfg, BATCH, 0))
+
+
+def on_device(torch, pipe, start, k, device):
+    return {n: torch.from_numpy(v).to(device)
+            for n, v in pipe.superstep_at(start, k).items()}
+
+
+def trees_equal(a, b) -> bool:
+    """Every leaf of two restored numpy trees (and the step) equal."""
+    from repro_torch.checkpoint.manager import flatten
+
+    fa, fb = flatten(a), flatten(b)
+    return [p for p, _ in fa] == [p for p, _ in fb] and all(
+        np.array_equal(x, y) for (_, x), (_, y) in zip(fa, fb))
+
+
+def check_driver(torch, kops, work: Path) -> dict:
+    """Phase 4c's checks; returns the numbers its time lines read."""
+    import contextlib
+    import io
+    import os
+
+    from repro_torch import bridge
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get
+    from repro_torch.launch import train as TR
+
+    cfg = get("chaos-large")
+    run = dict(batch=BATCH, superstep=DRIVER_K, sync_mode="bsp",
+               ckpt_every=DRIVER_CKPT_EVERY, log_every=DRIVER_STEPS,
+               device="cuda")
+    full = work / "full"
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    state, losses = TR.train("chaos-large", DRIVER_STEPS,
+                             ckpt_dir=str(full), **run)
+    torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    want = {k: LARGE_PER_STEP.get(k, 0) * DRIVER_STEPS for k in counts}
+    if counts != want:
+        raise AssertionError(f"driver: launches {counts}, expected {want}")
+    d_state, fn, pipe = direct_superstep(torch, cfg, DRIVER_STEPS, "cuda")
+    direct = []
+    for s0, k in TR.superstep_schedule(0, DRIVER_STEPS, DRIVER_K):
+        d_state, m = fn(d_state, on_device(torch, pipe, s0, k, "cuda"))
+        direct += m["loss"].tolist()
+    if direct != losses:
+        raise AssertionError(f"driver losses {losses} differ from the "
+                             f"direct make_superstep calls' {direct}")
+    print(f"driver chaos-large bsp: {DRIVER_STEPS} steps of {BATCH} as "
+          f"supersteps of {DRIVER_K}, losses {losses}, bit-identical to "
+          f"{DRIVER_STEPS // DRIVER_K} direct make_superstep calls; "
+          f"launches {counts}", flush=True)
+
+    died = work / "died"
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "chaos-large", "--batch", str(BATCH), "--steps",
+           str(DRIVER_STEPS), "--superstep", str(DRIVER_K), "--ckpt-dir",
+           str(died), "--ckpt-every", str(DRIVER_CKPT_EVERY),
+           "--die-at-step", str(DRIVER_DIE_AT), "--metrics-out",
+           str(work / "died.json")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 17:
+        raise AssertionError(f"the preempted driver exited with "
+                             f"{proc.returncode}, not 17:\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    print(f"driver --die-at-step {DRIVER_DIE_AT} (a subprocess, "
+          f"{seconds:.1f} s): exit code {proc.returncode}; checkpoints "
+          f"{CheckpointManager(str(died)).all_steps()}", flush=True)
+
+    # the card's step-8 checkpoint continued on the CPU's plain path
+    cpu_state, cpu_fn, _ = direct_superstep(torch, cfg, DRIVER_STEPS, "cpu")
+    cpu_state, at = CheckpointManager(str(died)).restore(cpu_state,
+                                                         step=DRIVER_DIE_AT)
+    _, m = cpu_fn(cpu_state, on_device(torch, pipe, at, 2, "cpu"))
+    cpu_losses = m["loss"].tolist()
+    d = max(abs(x - y) for x, y in zip(cpu_losses, losses[at:at + 2]))
+    print(f"driver: step-{at} checkpoint of the card continued 2 steps on "
+          f"the CPU plain path: losses {cpu_losses} against the card's "
+          f"{losses[at:at + 2]}, max |diff| {d:.3e}", flush=True)
+    if d > TRAIN_LOSS_ATOL:
+        raise AssertionError(f"card and CPU continuation differ by {d:.3e} "
+                             f"> {TRAIN_LOSS_ATOL}")
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        r_state, r_losses = TR.train("chaos-large", DRIVER_STEPS,
+                                     ckpt_dir=str(died), **run)
+    print(out.getvalue(), end="", flush=True)
+    if f"resumed from step {DRIVER_DIE_AT}" not in out.getvalue():
+        raise AssertionError("the resumed driver did not resume from step "
+                             f"{DRIVER_DIE_AT}")
+    if r_losses != losses[DRIVER_DIE_AT:]:
+        raise AssertionError(f"resumed losses {r_losses} differ from the "
+                             f"uninterrupted run's {losses[DRIVER_DIE_AT:]}")
+    like = bridge.state_to_numpy(state)
+    a, _ = CheckpointManager(str(full)).restore(like, step=DRIVER_STEPS)
+    b, _ = CheckpointManager(str(died)).restore(like, step=DRIVER_STEPS)
+    if not trees_equal(a, b):
+        raise AssertionError("the final checkpoints of the uninterrupted "
+                             "and the resumed run differ")
+    print(f"driver: resumed from step {DRIVER_DIE_AT}, losses of steps "
+          f"{DRIVER_DIE_AT}-{DRIVER_STEPS - 1} and the final checkpoint's "
+          f"leaves bit-identical to the uninterrupted run's", flush=True)
+
+    def smoke(tag, sync_mode="bsp", **kw):
+        path = work / f"{tag}.json"
+        TR.train("chaos-large", DRIVER_STEPS, batch=BATCH,
+                 sync_mode=sync_mode, log_every=DRIVER_STEPS,
+                 metrics_out=str(path), device="cuda", **DRIVER_WORKERS,
+                 **kw)
+        return json.loads(path.read_text())
+
+    kill_at = f"kill@{DRIVER_DIE_AT}:to=2"
+    base = smoke("base")
+    kill = smoke("kill", ckpt_dir=str(work / "kill"), ckpt_every=4,
+                 inject=kill_at)
+    fail = smoke("resizefail", ckpt_dir=str(work / "resizefail"),
+                 ckpt_every=4, inject=f"{kill_at},resizefail@{DRIVER_DIE_AT}")
+    chaos = smoke("chaos", sync_mode="chaos", staleness=1, inject=kill_at)
+    for tag, got, path in (("kill", kill, "in-memory"),
+                           ("resizefail", fail, "ckpt-restore")):
+        rs = [(r["from"], r["to"], r["path"]) for r in got["resizes"]]
+        if (got["losses"] != base["losses"] or rs != [(4, 2, path)]
+                or got["workers_final"] != 2):
+            raise AssertionError(f"preemption smoke {tag}: resizes {rs}, "
+                                 f"workers_final {got['workers_final']}, "
+                                 f"losses {got['losses']} against "
+                                 f"{base['losses']}")
+    if not (len(chaos["losses"]) == DRIVER_STEPS
+            and all(math.isfinite(v) for v in chaos["losses"])
+            and chaos["workers_final"] == 2):
+        raise AssertionError(f"chaos tau=1 with {kill_at}: {chaos}")
+    print(f"driver preemption smoke (chaos-large, --workers 4 "
+          f"--logical-shards {WORKER_SHARDS} --superstep 2, bsp): "
+          f"--inject {kill_at} resized 4 -> 2 in-memory, losses equal to "
+          f"the base run's; with resizefail@{DRIVER_DIE_AT} via "
+          f"ckpt-restore from step {fail['resizes'][0]['restart_step']}, "
+          f"losses equal; chaos tau=1 ran to its end, last loss "
+          f"{chaos['losses'][-1]:.6f}", flush=True)
+    return {"resize_s": kill["resizes"][0]["latency_s"],
+            "chaos_resize_s": chaos["resizes"][0]["latency_s"]}
+
+
+def driver_busy(torch):
+    """Device busy share of one driver superstep of DRIVER_TIMED's largest
+    K (torch.profiler): the kernels' summed time over the span from the
+    first conv forward kernel's start to the last device event's end; None
+    when PROFILE_TRIES traces hold no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import train as TR
+
+    k = max(DRIVER_TIMED)
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            TR.train("chaos-large", k, batch=BATCH, superstep=k,
+                     log_every=k, device="cuda")
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        starts = [e.time_range.start for e in events
+                  if "conv2d_fwd_kernel" in e.name]
+        if starts:
+            first = min(starts)
+            inside = [e for e in events if e.time_range.start >= first]
+            end = max(e.time_range.end for e in inside)
+            return sum(e.time_range.elapsed_us() for e in inside) / (
+                end - first)
+    return None
+
+
+def driver_times(torch, resize: dict, work: Path) -> None:
+    """Phase 4c's times, each line with the card's name and power limit:
+    the driver's ms a step (its watchdog's superstep times, median after
+    DRIVER_WARMUP) and ``train/steps_per_s`` at each K of DRIVER_TIMED
+    beside the same steps through ``make_superstep`` called directly on
+    batches already on the card (the host clock around each call and its
+    loss read, as the driver times it); one driver superstep's busy share;
+    the blocking save's ms and bytes and the restore's ms of the
+    chaos-large bsp state and of the chaos τ=1 state at N=4 (median of
+    CKPT_TIMED, warm file cache); the in-memory resize's latency."""
+    from repro_torch import bridge
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get
+    from repro_torch.core.chaos import SyncConfig
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.core.types import WorkerConfig
+    from repro_torch.launch import train as TR
+    from repro_torch.obs import MetricsBus
+    from repro_torch.train.step import init_train_state, init_worker_state
+
+    cfg = get("chaos-large")
+    card = card_line()
+    for k, steps in DRIVER_TIMED.items():
+        bus = MetricsBus()
+        TR.train("chaos-large", steps, batch=BATCH, superstep=k,
+                 log_every=steps, metrics_bus=bus, device="cuda")
+        sup = bus.series_sorted("watchdog/superstep_s")[DRIVER_WARMUP:]
+        sps = bus.summary()["gauges"]["train/steps_per_s"]
+        state, fn, pipe = direct_superstep(torch, cfg, steps, "cuda")
+        chunks = TR.superstep_schedule(0, steps, k)
+        batches = [on_device(torch, pipe, s0, kk, "cuda")
+                   for s0, kk in chunks]
+        torch.cuda.synchronize()
+        direct = []
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, m = fn(state, batch)
+            m["loss"].cpu()
+            direct.append(time.perf_counter() - t0)
+        d_sps = steps / sum(direct)
+        direct = direct[DRIVER_WARMUP:]
+        print(f"driver step time K={k}: {statistics.median(sup) * 1e3 / k:.4f}"
+              f" ms a step of {BATCH} (host clock around each superstep and "
+              f"its loss read, median of {len(sup)} supersteps, "
+              f"{min(sup) * 1e3 / k:.4f}-{max(sup) * 1e3 / k:.4f}), "
+              f"train/steps_per_s {sps:.2f}; direct make_superstep "
+              f"{statistics.median(direct) * 1e3 / k:.4f} ms a step "
+              f"({min(direct) * 1e3 / k:.4f}-{max(direct) * 1e3 / k:.4f}), "
+              f"{d_sps:.2f} steps/s; card {card}", flush=True)
+    busy = driver_busy(torch)
+    print(f"driver device busy over one superstep of {max(DRIVER_TIMED)}: "
+          + ("not measured (no device events)" if busy is None
+             else f"{busy * 100:.2f} %") + f"; card {card}", flush=True)
+
+    gen = torch.Generator
+    for label, state, workers in [
+            ("chaos-large bsp", init_train_state(
+                cfg, gen().manual_seed(0), SyncConfig("bsp"),
+                device="cuda"), None),
+            ("chaos-large chaos tau=1 N=4", init_worker_state(
+                cfg, gen().manual_seed(0), SyncConfig("chaos", staleness=1),
+                WorkerConfig(workers=4, logical_shards=WORKER_SHARDS),
+                device="cuda"), 4)]:
+        mgr = CheckpointManager(str(work / label.replace(" ", "_")),
+                                keep_n=1)
+        save, load = [], []
+        for i in range(CKPT_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(i, bridge.state_to_numpy(state, workers))
+            save.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            back, _ = mgr.restore(state)
+            torch.cuda.synchronize()
+            load.append(time.perf_counter() - t0)
+        if not all(torch.equal(x, y) for key in ("params", "opt", "sync")
+                   for x, y in zip(tree_leaves(back[key]),
+                                   tree_leaves(state[key]))):
+            raise AssertionError(f"{label}: the restored state differs")
+        meta = json.loads((work / label.replace(" ", "_")
+                           / f"step_{CKPT_TIMED - 1:010d}"
+                           / "manifest.json").read_text())
+        print(f"checkpoint {label}: blocking save "
+              f"{statistics.median(save) * 1e3:.3f} ms "
+              f"({min(save) * 1e3:.3f}-{max(save) * 1e3:.3f}), "
+              f"{meta['payload_bytes']} bytes in {meta['n_leaves']} leaves; "
+              f"restore {statistics.median(load) * 1e3:.3f} ms "
+              f"({min(load) * 1e3:.3f}-{max(load) * 1e3:.3f}, warm file "
+              f"cache); median of {CKPT_TIMED}; card {card}", flush=True)
+    print(f"in-memory resize 4 -> 2: latency_s {resize['resize_s']:.6f} "
+          f"(bsp, state passed through), {resize['chaos_resize_s']:.6f} "
+          f"(chaos tau=1, state re-slotted); card {card}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3676,6 +4002,15 @@ def main(argv=None) -> int:
               f"launches a step against the single instance's "
               f"{sum(LARGE_PER_STEP.values())}, so it is host-bound (a "
               f"captured graph of the superstep is ROADMAP A6b)", flush=True)
+        phase(f"4c the driver: chaos-large through launch/train.py on "
+              f"cuda, {DRIVER_STEPS} steps of {BATCH}, preempted at "
+              f"{DRIVER_DIE_AT} and resumed")
+        import tempfile
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+            resize = check_driver(torch, kops, Path(work))
+            driver_times(torch, resize, Path(work))
+        print(f"phase 4c took {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.synchronize()
 
     phase("5 times at the training step's shapes (CUDA events, median of "

@@ -4,6 +4,7 @@
 ``make_superstep(cfg, sync)``   -> K steps over a stacked (K, B, ...) batch
 ``make_worker_train_step(cfg, sync, worker)``, ``make_worker_superstep``,
 ``init_worker_state``           -> the same over N emulated workers
+``resize_worker_state``         -> a worker state re-slotted from N to N'
 
 Synchronization behaviour is delegated to ``train/sync.py``: this module
 builds the ``StepContext`` and the strategy supplies the step body, with
@@ -40,7 +41,8 @@ from repro_torch.core.tree import tree_map
 from repro_torch.core.types import ArchConfig, WorkerConfig
 from repro_torch.models.api import get_ops
 from repro_torch.optim import Optimizer, adamw, sgd
-from repro_torch.train.sync import StepContext, get_strategy
+from repro_torch.train.sync import (StepContext, get_strategy,
+                                    reslot_stacked)
 
 
 def make_optimizer(cfg: ArchConfig, base_lr: float = 3e-4,
@@ -405,6 +407,28 @@ def init_worker_state(cfg: ArchConfig, generator: torch.Generator,
     if strat.stacked_state:
         for k in ("params", "opt"):
             state[k] = replicate_for_workers(state[k], worker.workers)
+    return state
+
+
+def resize_worker_state(state, sync: SyncConfig, old_worker: WorkerConfig,
+                        new_worker: WorkerConfig):
+    """Re-slot a worker-route train state across an elastic change of the
+    worker count N -> N' at a superstep boundary (DESIGN.md §7), without a
+    checkpoint.  Replicated state (bsp, chaos τ=0) passes through
+    untouched, so the resize is bit-exact; stacked strategies (localsgd,
+    chaos τ>=1) re-slot every ``(N, ...)`` leaf of params and optimizer
+    state through ``train/sync.py::reslot_stacked``, and the sync state
+    goes through the strategy's ``resize_state``.  ``step`` stays the
+    host int."""
+    strat = get_strategy(sync)
+    state = dict(state)
+    sync_state = state.pop("sync")
+    if strat.stacked_state:
+        for k in ("params", "opt"):
+            state[k] = tree_map(
+                lambda x: reslot_stacked(x, old_worker.workers,
+                                         new_worker.workers), state[k])
+    state["sync"] = strat.resize_state(sync_state, old_worker, new_worker)
     return state
 
 

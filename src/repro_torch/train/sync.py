@@ -19,6 +19,10 @@ Protocol (one strategy instance per ``SyncConfig``):
                             ``(logical_shards, ...)`` axis, worker-count-
                             invariant: the compression residual) or
                             unstacked
+``checkpoint_layout()``     one line on whether checkpoints pin N
+``resize_state(sync_state, old_worker, new_worker)``
+                            the sync state re-slotted across an elastic
+                            change of the worker count
 ``step(ctx, state, batch)`` the full train-step body
 ``boundary(ctx, params, sync_state, step) -> (params, sync_state)``
                             end-of-step parameter hook (localsgd's K-step
@@ -49,6 +53,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.chaos import (SyncConfig, compress_grads, dtype_named,
@@ -81,6 +86,45 @@ def get_strategy(sync: SyncConfig) -> "SyncStrategy":
 
 def _identity(tree):
     return tree
+
+
+# ---------------------------------------------------------------------------
+# elastic re-slot rule (DESIGN.md §7): how a worker-stacked (N, ...) leaf
+# maps onto N' slots when the worker count changes at a superstep boundary.
+#   N' == N                pass through (bit-exact)
+#   N  == g·N' (shrink)    new worker j <- MEAN of old workers
+#                          [j·g, (j+1)·g)
+#   N' == g·N  (grow)      new workers [j·g, (j+1)·g) <- COPY of old worker j
+#   otherwise              every new worker <- the global mean over all old
+#                          workers
+# Means are summed in f32 in worker order, times the f32 reciprocal of the
+# count (XLA turns ``jnp.mean``'s division by a constant into that), and
+# cast back to the leaf dtype, as in the JAX package.
+# Replicated state (bsp, chaos τ=0) never passes through here.
+# ---------------------------------------------------------------------------
+def _mean_f32(x: torch.Tensor) -> torch.Tensor:
+    """The f32 mean over axis 0, summed in index order."""
+    acc = x[0].float()
+    for i in range(1, x.shape[0]):
+        acc = acc + x[i].float()
+    return acc * float(np.float32(1.0 / x.shape[0]))
+
+
+def reslot_stacked(x: torch.Tensor, n_old: int, n_new: int) -> torch.Tensor:
+    if x.dim() < 1 or x.shape[0] != n_old:
+        raise ValueError(
+            f"reslot_stacked expects a leading ({n_old}, ...) worker axis, "
+            f"got shape {tuple(x.shape)}")
+    if n_new == n_old:
+        return x
+    if n_old % n_new == 0:
+        g = n_old // n_new
+        return torch.stack([_mean_f32(x[j * g:(j + 1) * g])
+                            for j in range(n_new)]).to(x.dtype)
+    if n_new % n_old == 0:
+        return torch.repeat_interleave(x, n_new // n_old, dim=0)
+    m = _mean_f32(x).to(x.dtype)
+    return m[None].expand((n_new,) + tuple(x.shape[1:])).contiguous()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,6 +202,31 @@ class BspStrategy:
         per micro-shard, so the compressed exchange and its residual are
         bit-identical for every worker count dividing logical_shards."""
         return {"residual": "shard"} if self.sync.compress else {}
+
+    def checkpoint_layout(self) -> str:
+        return ("worker-stacked (leading (N, ...) axis; checkpoints pin "
+                "the worker count)" if self.stacked_state else
+                "replicated (worker-count-invariant checkpoints)")
+
+    def resize_state(self, sync_state, old_worker, new_worker) -> dict:
+        """Re-slot this strategy's sync state across an elastic change of
+        the worker count N -> N' (DESIGN.md §7), driven by
+        ``worker_sync_layout()``: "worker" keys re-slot their leading
+        ``(N, ...)`` axis through ``reslot_stacked``; "shard" keys (the
+        compression residual, stacked over ``logical_shards``) and
+        unstacked keys pass through, since ``logical_shards`` is the
+        resize invariant."""
+        if new_worker.logical_shards != old_worker.logical_shards:
+            raise ValueError(
+                "elastic resize must keep logical_shards fixed (it is the "
+                f"bit-exactness anchor), got {old_worker.logical_shards} -> "
+                f"{new_worker.logical_shards}")
+        layout = self.worker_sync_layout()
+        return {k: (tree_map(
+                        lambda x: reslot_stacked(x, old_worker.workers,
+                                                 new_worker.workers), v)
+                    if layout.get(k) == "worker" else v)
+                for k, v in sync_state.items()}
 
     # -- shared pieces --------------------------------------------------
     def _maybe_compress(self, ctx: StepContext, grads, sync_state):

@@ -20,6 +20,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops as kops
 from repro_torch.launch.serve import serve, serve_trace
+from repro_torch.launch.train import main as train_main
+from repro_torch.launch.train import train
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.core.chaos import SyncConfig
 from repro_torch.models import api
@@ -89,6 +91,28 @@ def test_cpu_worker_route_leaves_every_launch_count_at_zero():
         state, m = make_worker_superstep(cfg, sync, worker, device="cpu")(
             state, {"images": images[None], "labels": labels[None]})
         assert np.isfinite(m["loss"].numpy()).all()
+    assert set(kops.launch_counts().values()) == {0}
+
+
+def test_driver_defaults_to_cuda_and_raises_without_a_card(monkeypatch,
+                                                          tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for workers in (None, 2):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train("chaos-small", 2, workers=workers)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_main(["--arch", "chaos-small", "--steps", "2", "--ckpt-dir",
+                    str(tmp_path)])
+    assert not any(tmp_path.iterdir())
+
+
+def test_cpu_driver_leaves_every_launch_count_at_zero(tmp_path):
+    kops.reset_launch_counts()
+    for workers in (None, 2):
+        _, losses = train("chaos-small", 2, batch=8, workers=workers,
+                          ckpt_dir=str(tmp_path / str(workers)),
+                          device="cpu")
+        assert np.isfinite(losses).all()
     assert set(kops.launch_counts().values()) == {0}
 
 

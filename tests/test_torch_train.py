@@ -240,7 +240,7 @@ def test_step_builders_have_no_mode_branches():
                           src)
 
 
-def test_worker_mesh_is_not_yet_ported():
+def test_worker_route_refuses_what_it_does_not_carry():
     """The worker route runs (tests/test_torch_workers*.py); what it does
     not yet carry raises: the overlap harness's latency injection, its
     interleaved shard tape, and micro-batches (the reference raises on
