@@ -1,15 +1,26 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py             # from the repository root, one card
-    python3 chip_smoke.py --kernels   # phases 1, 3, 5, the WKV time, 19
+    python3 chip_smoke.py                 # from the repository root, one card
+    python3 chip_smoke.py --kernels       # phases 1, 3, 5, the WKV time, 19
+    python3 chip_smoke.py --traced-checks # the checks that read kernel names
 
 ``--kernels`` compares two trees' CNN kernel times, the WKV kernel's time
 at the rwkv6-1.6b scoring shape and every kernel's bits in one call: copy
 this script into the other tree's root and run it there too (it imports
 the ``src/`` beside it).  It prints no result lines.
 
-Phases (every failure raises and exits non-zero; no phase catches its own):
+``--traced-checks`` makes the two checks that read device kernel names
+from torch.profiler (phase 2's pool and softmax-xent instances, phase
+11's flash backward kernels per call, there on one call at the training
+shape) in a process of their own.  The full run starts it when
+PROFILE_TRIES traces in a row of its own process held no device events;
+when that process's traces hold none either, the run names the checks it
+could not make on a line of phase 20 and goes on.
+
+Phases (every failure raises and exits non-zero; no phase catches its own;
+a profiler that records no device events is no failure of the port, see
+``--traced-checks``):
 
 1. Device and build: the card's name and power limit, TF32 off for the
    library yardsticks, the kernels built from ``src/repro_torch/kernels/
@@ -84,6 +95,26 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
    share (torch.profiler), the blocking save's ms and bytes and the
    restore's ms for the bsp state and the chaos τ=1 state at N=4, and the
    in-memory resize's latency.
+4d. Overlap and tracing (after 4c): the deadline pair of
+   ``kernels/deadline.py`` alone (gates of GATE_MS by CUDA events, each at
+   or above its delay and at most GATE_SLACK_MS + GATE_SLACK_REL above;
+   the device clock's calibration error and its offset from the host
+   clock); chaos-large at B=BATCH as WORKER_SHARDS micro-shards, layerwise
+   bsp at N=2 and 4 over WORKER_K steps: the interleaved schedule
+   bit-identical to collect with 120 launches a step on both and, with no
+   tracer and no delay, no deadline launch; at 1 ns/byte both schedules
+   chaos τ=1, localsgd τ=0 and τ=1 (N=2, local_steps=2, τ=1 with its
+   ``lstok`` tokens) bit-identical to delay 0, with one stamp and one gate
+   per exchange; the exchange wait
+   a step from the tracer's device stamps and the step time (CUDA events)
+   of both schedules at OVERLAP_DELAYS ns/byte, N=4, collect's wait held
+   within CHARGE_REL of bytes x delay; ``launch/train.py`` with
+   TRACED_DRIVER traced and untraced in subprocesses (losses bit-identical,
+   every bucket x step x worker exchange span); qwen3-14b at full width,
+   LM_WORKER_LAYERS layers, on the worker route (N=2 on 2 micro-shards,
+   SGD), collect against the interleaved tape, with the flash launches of
+   every step and the peak memory; one traced serving run of rwkv6-1.6b
+   whose spans and bus counters equal the engine's counters.
 5. Times: each kernel at the training step's shapes against its plain
    version, one PyTorch library call for the same function (a yardstick
    the port never calls) and its bound on the card, by CUDA events,
@@ -147,7 +178,8 @@ Phases (every failure raises and exits non-zero; no phase catches its own):
     around each step (exactly 8 ``flash_attention_fwd`` launches, the
     forward's and the remat recompute's, and 4 ``flash_attention_bwd``
     launches), first loss near ln V, peak memory, step ms by CUDA events,
-    one torch.profiler trace of a step; then one chaos τ=1 superstep of 8.
+    one torch.profiler trace of a step (2 device kernels per
+    ``flash_attention_bwd`` call); then one chaos τ=1 superstep of 8.
 12. LM training times: the forward and backward kernels per call and per
     step at the training shape against the backward's plain version, SDPA's
     backward (a yardstick the port never calls) and the backward's bound
@@ -555,6 +587,15 @@ HOST_CALLS = 200
 #: Traces taken before a profiler reading is given up: now and then a trace
 #: of a few short kernels holds no device events.
 PROFILE_TRIES = 3
+#: Exit code of ``--traced-checks`` when torch.profiler recorded no device
+#: events in that fresh process either.
+NO_EVENTS_RC = 4
+#: The checks that need torch.profiler's device events (phase 2's kernel
+#: instances, phase 11's flash backward kernels per call) and that neither
+#: this process's traces nor a fresh process's held; phase 20 names them.
+UNTRACED = []
+#: The exit code of the one ``--traced-checks`` process, once it has run.
+TRACED_CHILD = {}
 #: Phase 5: bytes read before each timed call of the pool forward, five
 #: times the H100's 50 MB L2, so that the call reads its input from DRAM,
 #: where the bound's memory rate holds.
@@ -619,6 +660,37 @@ DRIVER_TIMED = {1: 32, 8: 64}
 DRIVER_WARMUP = 2
 #: Blocking saves and restores timed per state.
 CKPT_TIMED = 3
+#: Phase 4d, overlap and tracing: the deadline gate alone at GATE_MS delays
+#: (CUDA events around a stamp and its gate, enqueued behind a spacer gate
+#: so no host gap enters), each at or above its delay and at most
+#: GATE_SLACK_MS + GATE_SLACK_REL of it above.
+GATE_MS = (0.5, 2.0, 8.0)
+GATE_SLACK_MS = 0.05
+GATE_SLACK_REL = 0.02
+GATE_REPEATS = 3
+#: Interleave against collect at these worker counts over WORKER_K steps;
+#: the injected delays timed (ns/byte) at OVERLAP_N workers.
+OVERLAP_COUNTS = (2, 4)
+OVERLAP_DELAYS = (1.0, 4.0)
+OVERLAP_N = 4
+#: Collect's exchange wait a step (tracer stamps) against its bytes × delay.
+CHARGE_REL = 0.10
+#: The traced driver: ``launch/train.py``'s command line.
+TRACED_DRIVER = ["--arch", "chaos-large", "--workers", "4", "--sync",
+                 "bsp", "--layerwise", "--interleave", "--collective-delay",
+                 "1", "--steps", "8", "--superstep", "2", "--batch",
+                 str(BATCH)]
+#: The dense LM on the worker route: qwen3-14b at full width cut to
+#: LM_WORKER_LAYERS layers (the largest depth whose stacked f32 shard
+#: gradients fit one 80 GB card beside the bf16 params), N=2 workers on 2
+#: micro-shards of LM_DATA's batch, plain SGD, LM_WORKER_STEPS steps on each
+#: schedule.  Its losses: the two schedules within LM_LOSS_REL.
+LM_WORKER_LAYERS = 6
+LM_WORKER = dict(workers=2, logical_shards=2)
+LM_WORKER_STEPS = 2
+#: The traced serving run: rwkv6-1.6b at full width and depth.
+TRACED_SERVE = dict(slots=2, requests=4, rate=1.0, prompt_lens=(8, 16),
+                    gen=4, max_seq=32)
 
 
 def phase(name):
@@ -692,6 +764,10 @@ def softmax_instance(C: int) -> tuple:
     return ("softmax_xent_lanes_kernel", ())
 
 
+class NoDeviceEvents(AssertionError):
+    """PROFILE_TRIES torch.profiler traces in a row held no device events."""
+
+
 def traced_kernels(torch, fn) -> list:
     """Names of the device kernels that one call of ``fn`` ran, from a
     torch.profiler trace (up to PROFILE_TRIES traces: one now and then
@@ -700,8 +776,56 @@ def traced_kernels(torch, fn) -> list:
         prof = profile_steps(torch, fn, steps=1)
         if prof is not None:
             return [name for name, _ in prof[1]]
-    raise AssertionError(f"torch.profiler recorded no device events in "
+    raise NoDeviceEvents(f"torch.profiler recorded no device events in "
                          f"{PROFILE_TRIES} traces")
+
+
+def traced_checks_in_child(what: str) -> None:
+    """Make the traced checks in a fresh process (``--traced-checks``),
+    once per run, after PROFILE_TRIES traces in a row of this process held
+    no device events (a process whose profiler records none now and then
+    records none all along).  Raises when a check fails there; when that
+    process's traces hold no device events either, ``what`` joins UNTRACED
+    and the run goes on: the values were held all the same, and only the
+    device kernels' names could not be read."""
+    if "rc" not in TRACED_CHILD:
+        print(f"{what}: torch.profiler recorded no device events in "
+              f"{PROFILE_TRIES} traces in a row; the traced checks run in "
+              f"a fresh process", flush=True)
+        TRACED_CHILD["rc"] = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--traced-checks"],
+            cwd=ROOT, timeout=600).returncode
+    rc = TRACED_CHILD["rc"]
+    if rc == NO_EVENTS_RC:
+        UNTRACED.append(what)
+        print(f"{what}: not made; torch.profiler recorded no device events "
+              f"in this process or in a fresh one", flush=True)
+    elif rc != 0:
+        raise AssertionError(f"{what}: the traced checks failed in a fresh "
+                             f"process (exit code {rc})")
+
+
+def check_instances(torch, cases, fresh_process: bool = True) -> None:
+    """Hold each (name, label, kernel call, (device kernel, template
+    arguments)) case to the one device kernel instance its shape and
+    pointers pick, by torch.profiler; with ``fresh_process``, in a fresh
+    process when this one's traces hold no device events."""
+    for name, label, kern, (kernel, args) in cases:
+        try:
+            names = traced_kernels(torch, kern)
+        except NoDeviceEvents:
+            if not fresh_process:
+                raise
+            traced_checks_in_child("phase 2's pool and softmax-xent "
+                                   "instance checks")
+            return
+        ran = kernel_instances(names, kernel)
+        if ran != [args]:
+            raise AssertionError(f"{name} {label}: ran {kernel} "
+                                 f"instances {ran}, expected [{args}]")
+        print(f"instance {name:17s} {label}: ran {kernel}<"
+              f"{', '.join(map(str, args))}> (by torch.profiler)",
+              flush=True)
 
 
 def parity_cases(torch, K, P, FC):
@@ -809,6 +933,7 @@ def parity_cases(torch, K, P, FC):
 
 def check_parity(torch, K, P, FC) -> dict:
     worst = {name: 0.0 for name in TOL}
+    instances = []
     for name, label, kern, plain, *instance in parity_cases(torch, K, P, FC):
         got, again, want = kern(), kern(), plain()
         torch.cuda.synchronize()
@@ -840,15 +965,10 @@ def check_parity(torch, K, P, FC) -> dict:
                     f"{diff.max().item():.3e} over atol {atol} rtol {rtol}")
         worst[name] = max(worst[name], err)
         if instance:
-            kernel, args = instance[0]
-            ran = kernel_instances(traced_kernels(torch, kern), kernel)
-            if ran != [args]:
-                raise AssertionError(f"{name} {label}: ran {kernel} "
-                                     f"instances {ran}, expected [{args}]")
-            label += (f"; ran {kernel}<{', '.join(map(str, args))}> (by "
-                      f"torch.profiler)")
+            instances.append((name, label, kern, instance[0]))
         print(f"parity {name:17s} {label}: max_abs_err={err:.3e}; second "
               f"call bit-identical", flush=True)
+    check_instances(torch, instances)
     worst["conv2d_fwd"] = max(worst["conv2d_fwd"], check_conv_fwd_huge(torch,
                                                                        K))
     return worst
@@ -1122,14 +1242,19 @@ def worker_run(torch, kops, launch_trace, cfg, sync, n, state_np,
     return state, losses, counts
 
 
-def states_equal(torch, a, b) -> bool:
-    """Every leaf of two states' params, opt and sync trees bit-equal."""
+def bits_equal(torch, a, b, keys) -> bool:
+    """The leaves of ``a[key]`` and ``b[key]`` bit-equal for every key."""
     from repro_torch.core.tree import tree_leaves
 
-    la = [x for k in ("params", "opt", "sync") for x in tree_leaves(a[k])]
-    lb = [x for k in ("params", "opt", "sync") for x in tree_leaves(b[k])]
+    la = [x for k in keys for x in tree_leaves(a[k])]
+    lb = [x for k in keys for x in tree_leaves(b[k])]
     return len(la) == len(lb) and all(torch.equal(x, y)
                                       for x, y in zip(la, lb))
+
+
+def states_equal(torch, a, b) -> bool:
+    """Every leaf of two states' params, opt and sync trees bit-equal."""
+    return bits_equal(torch, a, b, ("params", "opt", "sync"))
 
 
 def worker_state_np(torch, cfg, sync, n):
@@ -1564,6 +1689,436 @@ def driver_times(torch, resize: dict, work: Path) -> None:
     print(f"in-memory resize 4 -> 2: latency_s {resize['resize_s']:.6f} "
           f"(bsp, state passed through), {resize['chaos_resize_s']:.6f} "
           f"(chaos tau=1, state re-slotted); card {card}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 4d: overlap and tracing
+# ---------------------------------------------------------------------------
+def clock_offset(torch) -> tuple:
+    """The calibrated device clock against the host clock now: (device µs
+    since the epoch minus the host's at the middle of a stamp's
+    synchronize window, the window's half-width in µs), from the
+    narrowest of CALIBRATION_SAMPLES windows, as the calibration takes
+    it."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import deadline as DL
+
+    slot = torch.zeros(1, dtype=torch.int64, device="cuda")
+    best = None
+    for _ in range(DL.CALIBRATION_SAMPLES):
+        torch.cuda.synchronize()
+        t0 = time.monotonic_ns()
+        build.launch("repro_deadline_stamp", slot.device, None, slot, 0,
+                     0.0)
+        torch.cuda.synchronize()
+        t1 = time.monotonic_ns()
+        device_us = float(DL.to_us([int(slot.item())], slot.device)[0])
+        got = (device_us - ((t0 + t1) / 2 - DL.EPOCH_NS) * 1e-3,
+               (t1 - t0) / 2e3)
+        if best is None or got[1] < best[1]:
+            best = got
+    return best
+
+
+def check_deadline(torch) -> None:
+    """Phase 4d.1: the deadline pair alone."""
+    from repro_torch.kernels import deadline as DL
+
+    epoch_ns, err_ns = DL.calibrate(torch.device("cuda"))
+    print(f"deadline clock: %globaltimer read {epoch_ns} ns at the epoch, "
+          f"calibration error at most {err_ns / 1e3:.3f} us (half the "
+          f"narrowest of {DL.CALIBRATION_SAMPLES} synchronize windows)",
+          flush=True)
+    like = torch.zeros(1, device="cuda")
+    DL.gate(DL.stamp(like, 0.0))
+    torch.cuda.synchronize()
+    for ms in GATE_MS:
+        got = []
+        for _ in range(GATE_REPEATS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            DL.gate(DL.stamp(like, 1.0))  # the spacer: the host runs ahead
+            start.record()
+            DL.gate(DL.stamp(like, ms))
+            end.record()
+            end.synchronize()
+            got.append(start.elapsed_time(end))
+        hi = ms + GATE_SLACK_MS + GATE_SLACK_REL * ms
+        print(f"deadline gate of {ms} ms: {', '.join(f'{g:.4f}' for g in got)}"
+              f" ms (CUDA events around the stamp and the gate), held to "
+              f"[{ms}, {hi:.4f}]", flush=True)
+        if not all(ms <= g <= hi for g in got):
+            raise AssertionError(f"deadline gate of {ms} ms took {got} ms")
+    off, win = clock_offset(torch)
+    print(f"deadline clock against the host clock after calibration: "
+          f"offset {off:.3f} us, window +-{win:.3f} us", flush=True)
+
+
+def check_overlap(torch, kops, launch_trace, batches_np) -> None:
+    """Phase 4d.2 and 4d.3: interleave against collect, bit for bit with
+    the same launches and no deadline launch, then value neutrality of the
+    injected delay."""
+    from repro_torch.configs import get
+    from repro_torch.core.chaos import SyncConfig
+    from repro_torch.kernels import deadline as DL
+    from repro_torch.models.api import get_ops
+
+    cfg = get("chaos-large")
+    n_buckets = len(get_ops(cfg, device="cuda").bucket_spec())
+    steps = len(batches_np)
+    collect = SyncConfig("bsp", layerwise=True)
+    inter = SyncConfig("bsp", layerwise=True, interleave=True)
+    init = worker_state_np(torch, cfg, collect, 1)
+    runs = {}
+    for n in OVERLAP_COUNTS:
+        for label, sync in (("collect", collect), ("interleave", inter)):
+            DL.reset_counts()
+            runs[n, label] = worker_run(torch, kops, launch_trace, cfg, sync,
+                                        n, init, batches_np, "cuda")
+            if DL.stamp.launches or DL.gate.launches:
+                raise AssertionError(f"{label} N={n} with no tracer and no "
+                                     f"delay launched {DL.counts()}")
+        a, b = runs[n, "collect"], runs[n, "interleave"]
+        if not (states_equal(torch, a[0], b[0]) and a[1] == b[1]):
+            raise AssertionError(f"interleave at N={n} is not bit-identical "
+                                 f"to collect")
+        print(f"overlap chaos-large layerwise bsp N={n}: interleave "
+              f"bit-identical to collect over {steps} steps (losses "
+              f"{b[1]}), launches a superstep of {WORKER_K} {b[2]} on both, "
+              f"no deadline launch", flush=True)
+
+    delayed = {}
+    for label, sync in (("collect", collect), ("interleave", inter)):
+        sync = dataclasses.replace(sync, collective_delay_ns_per_byte=1.0)
+        DL.reset_counts()
+        delayed[label] = worker_run(torch, kops, launch_trace, cfg, sync,
+                                    OVERLAP_N, init, batches_np, "cuda")
+        # interleave stamps each bucket at its issue point; collect each
+        # gather and, bsp's, the metrics' gather
+        per_step = n_buckets + (label == "collect")
+        want = per_step * steps
+        if (DL.stamp.launches, DL.gate.launches) != (want, want):
+            raise AssertionError(f"{label} at 1 ns/byte: deadline launches "
+                                 f"{DL.counts()}, expected {want} each")
+        base = runs[OVERLAP_N, label]
+        if not (states_equal(torch, delayed[label][0], base[0])
+                and delayed[label][1] == base[1]):
+            raise AssertionError(f"{label} at 1 ns/byte is not "
+                                 f"bit-identical to delay 0")
+        print(f"overlap {label} N={OVERLAP_N} at 1 ns/byte: bit-identical "
+              f"to delay 0; {DL.stamp.launches} stamps and "
+              f"{DL.gate.launches} gates over {steps} steps", flush=True)
+
+    # the batched step: chaos' one gather a step (its remote term), and
+    # localsgd τ=0's blocking average at each boundary
+    for label, sync, per_run in (
+            ("chaos tau=1", SyncConfig("chaos", staleness=1), steps),
+            ("localsgd tau=0 local_steps=2",
+             SyncConfig("localsgd", local_steps=2, staleness=0), steps // 2)):
+        state_np = worker_state_np(torch, cfg, sync, 2)
+        off = worker_run(torch, kops, launch_trace, cfg, sync, 2, state_np,
+                         batches_np, "cuda")
+        DL.reset_counts()
+        on = worker_run(torch, kops, launch_trace, cfg,
+                        dataclasses.replace(sync,
+                                            collective_delay_ns_per_byte=1.0),
+                        2, state_np, batches_np, "cuda")
+        if (DL.stamp.launches, DL.gate.launches) != (per_run, per_run):
+            raise AssertionError(f"{label} at 1 ns/byte: deadline launches "
+                                 f"{DL.counts()}, expected {per_run} each")
+        if not (states_equal(torch, on[0], off[0]) and on[1] == off[1]):
+            raise AssertionError(f"{label} at 1 ns/byte is not "
+                                 f"bit-identical to delay 0")
+        print(f"overlap {label} N=2 at 1 ns/byte: bit-identical to delay 0; "
+              f"{DL.stamp.launches} stamps and {DL.gate.launches} gates over "
+              f"{steps} steps", flush=True)
+
+    ls = SyncConfig("localsgd", local_steps=2, staleness=1)
+    lsd = dataclasses.replace(ls, collective_delay_ns_per_byte=1.0)
+    off = worker_run(torch, kops, launch_trace, cfg, ls, 2,
+                     worker_state_np(torch, cfg, ls, 2), batches_np, "cuda")
+    on_np = worker_state_np(torch, cfg, lsd, 2)
+    DL.reset_counts()
+    on = [worker_run(torch, kops, launch_trace, cfg, lsd, 2, on_np,
+                     batches_np, "cuda") for _ in range(2)]
+    boundaries = steps // ls.local_steps
+    if (DL.stamp.launches, DL.gate.launches) != (2 * boundaries,) * 2:
+        raise AssertionError(f"localsgd tau=1: deadline launches "
+                             f"{DL.counts()}, expected {boundaries} each a "
+                             f"run")
+    lstok = on[0][0]["sync"]["lstok"]
+    if tuple(lstok.shape) != (2, 1) or not bool((lstok > 0).all()):
+        raise AssertionError(f"localsgd tau=1: lstok {lstok}")
+    for o in on:
+        if not (bits_equal(torch, o[0], off[0], ("params", "opt"))
+                and bits_equal(torch, o[0]["sync"], off[0]["sync"],
+                               ("lsring",)) and o[1] == off[1]):
+            raise AssertionError("localsgd tau=1 at 1 ns/byte is not "
+                                 "bit-identical to delay 0")
+    print(f"overlap localsgd tau=1 local_steps=2 N=2 at 1 ns/byte: params, "
+          f"optimizer state, ring and losses bit-identical to delay 0 in two "
+          f"runs; lstok {lstok.flatten().tolist()} ms; one stamp and one "
+          f"gate a boundary", flush=True)
+
+
+def exchange_waits(spans, steps: range) -> tuple:
+    """Per step of ``steps``, the sum over the buckets of worker0's
+    ``exchange_wait`` and ``exchange`` span durations in ms; and each
+    bucket's median wait in ms."""
+    waits, flight = {}, {}
+    for e in spans:
+        if e["args"]["worker"] != 0:
+            continue
+        kind, bucket = e["name"].split("/")
+        (waits if kind == "exchange_wait" else flight).setdefault(
+            bucket, []).append(e["dur"] * 1e-3)
+    per_step = [sum(w[i] for w in waits.values()) for i in steps]
+    in_flight = [sum(f[i] for f in flight.values()) for i in steps]
+    by_bucket = {b: statistics.median(w[i] for i in steps)
+                 for b, w in waits.items()}
+    return per_step, in_flight, by_bucket
+
+
+def overlap_times(torch, images, labels) -> None:
+    """Phase 4d.4: the exchange wait a step from the tracer's device
+    stamps and the step time (CUDA events) of the collect and interleaved
+    schedules at OVERLAP_DELAYS, N=OVERLAP_N, B=BATCH as WORKER_SHARDS
+    micro-shards, supersteps of WORKER_K: WORKER_TIMED after a warm-up,
+    then one traced by torch.profiler for the device's busy share."""
+    from repro_torch.configs import get
+    from repro_torch.core.chaos import SyncConfig
+    from repro_torch.core.types import WorkerConfig
+    from repro_torch.models.api import get_ops
+    from repro_torch.obs.trace import Tracer, set_tracer
+    from repro_torch.train.step import init_worker_state, make_worker_superstep
+
+    cfg = get("chaos-large")
+    worker = WorkerConfig(workers=OVERLAP_N, logical_shards=WORKER_SHARDS)
+    ops = get_ops(cfg, device="cuda")
+    abstract = ops.abstract_params()
+    nbytes = {b.name: WORKER_SHARDS * 4 * sum(
+        x.numel() for x in tree_leaves(b.view(abstract)))
+        for b in ops.bucket_spec()}
+    total = sum(nbytes.values())
+    print(f"overlap charges at 1 ns/byte ({WORKER_SHARDS} shards of f32 "
+          f"gradients a step, {total} bytes): "
+          + ", ".join(f"{b} {n * 1e-6:.3f} ms" for b, n in nbytes.items()),
+          flush=True)
+    sup = {"images": torch.as_tensor(images[:BATCH * WORKER_K],
+                                     device="cuda").view(
+                                         WORKER_K, BATCH, *images.shape[1:]),
+           "labels": torch.as_tensor(labels[:BATCH * WORKER_K],
+                                     device="cuda").view(WORKER_K, BATCH)}
+    card = card_line()
+    timed = range(WORKER_K, (1 + WORKER_TIMED) * WORKER_K)
+    for delay in OVERLAP_DELAYS:
+        for label in ("collect", "interleave"):
+            sync = SyncConfig("bsp", layerwise=True,
+                              interleave=label == "interleave",
+                              collective_delay_ns_per_byte=delay)
+            tracer = Tracer("train")
+            prev = set_tracer(tracer)
+            try:
+                fn = make_worker_superstep(cfg, sync, worker, device="cuda")
+            finally:
+                set_tracer(prev)
+            box = [init_worker_state(cfg, torch.Generator().manual_seed(0),
+                                     sync, worker, device="cuda")]
+
+            def one(fn=fn, box=box):
+                box[0], _ = fn(box[0], sup)
+
+            one()
+            torch.cuda.synchronize()
+            ms = []
+            for _ in range(WORKER_TIMED):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                one()
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end) / WORKER_K)
+            prof = profile_steps(torch, one, steps=1)
+            waits, flight, by_bucket = exchange_waits(tracer.finalize(),
+                                                      timed)
+            wait = statistics.median(waits)
+            charge = total * delay * 1e-6
+            print(f"overlap {label} N={OVERLAP_N} at {delay} ns/byte: "
+                  f"exchange wait {wait:.4f} ms a step (tracer stamps, "
+                  f"median of {len(waits)} steps, {min(waits):.4f}-"
+                  f"{max(waits):.4f}) against a charge of {charge:.4f} ms, "
+                  f"{100 * (1 - wait / charge):.1f} % hidden; in flight "
+                  f"{statistics.median(flight):.4f} ms; by bucket "
+                  + ", ".join(f"{b} {w:.4f}" for b, w in by_bucket.items())
+                  + f"; step {statistics.median(ms):.4f} ms (CUDA events, "
+                  f"median of {WORKER_TIMED} supersteps of {WORKER_K}, "
+                  f"{min(ms):.4f}-{max(ms):.4f}), device busy "
+                  + ("not measured (no device events)" if prof is None
+                     else f"{prof[0] * 100:.2f} % (the gates' spin "
+                          f"counts as busy)") + f"; card {card}", flush=True)
+            if label == "collect" and abs(wait - charge) > CHARGE_REL * charge:
+                raise AssertionError(f"collect's exchange wait {wait:.4f} ms "
+                                     f"is not within {CHARGE_REL:.0%} of its "
+                                     f"charge {charge:.4f} ms")
+            del box
+    torch.cuda.empty_cache()
+
+
+def check_traced_driver(torch, work: Path) -> None:
+    """Phase 4d.5: ``launch/train.py`` with the overlap options, traced and
+    untraced, each in a subprocess."""
+    import collections
+    import os
+
+    from repro_torch.configs import get
+    from repro_torch.models.api import get_ops
+
+    n_buckets = len(get_ops(get("chaos-large"), device="cuda").bucket_spec())
+    steps, k, workers = (int(TRACED_DRIVER[TRACED_DRIVER.index(f) + 1])
+                         for f in ("--steps", "--superstep", "--workers"))
+    runs = {}
+    for tag, extra in (("traced", ["--trace-out", str(work / "t.json")]),
+                       ("untraced", [])):
+        out = work / f"{tag}.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train",
+             *TRACED_DRIVER, "--metrics-out", str(out), *extra], cwd=ROOT,
+            capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        if proc.returncode != 0:
+            raise AssertionError(f"the {tag} driver exited with "
+                                 f"{proc.returncode}:\n{proc.stdout[-2000:]}"
+                                 f"{proc.stderr[-4000:]}")
+        line = [ln for ln in proc.stdout.splitlines() if "ms a step" in ln]
+        runs[tag] = json.loads(out.read_text())["losses"]
+        print(f"driver {tag} ({time.perf_counter() - t0:.1f} s in a "
+              f"subprocess): {line[-1]}; card {card_line()}", flush=True)
+    if runs["traced"] != runs["untraced"]:
+        raise AssertionError(f"traced losses {runs['traced']} differ from "
+                             f"the untraced run's {runs['untraced']}")
+    evs = json.loads((work / "t.json").read_text())["traceEvents"]
+    tracks = {(e["pid"], e["tid"]): e["args"]["name"] for e in evs
+              if e["name"] == "thread_name"}
+    names = collections.Counter(e["name"].split("/")[0] for e in evs
+                                if e["ph"] != "M")
+    per = collections.Counter((e["name"], tracks[e["pid"], e["tid"]])
+                              for e in evs if e["ph"] == "X"
+                              and e["name"].startswith("exchange"))
+    want = n_buckets * steps * workers
+    if not (names["superstep"] == steps // k
+            and names["exchange"] == names["exchange_wait"] == want
+            and set(per.values()) == {steps}
+            and len(per) == 2 * n_buckets * workers):
+        raise AssertionError(f"the driver's trace holds {dict(names)}")
+    print(f"driver trace: {names['superstep']} superstep spans (steps "
+          f"{steps} as supersteps of {k}), {names['exchange']} exchange and "
+          f"{names['exchange_wait']} exchange_wait spans ({n_buckets} "
+          f"buckets x {steps} steps x {workers} workers); losses "
+          f"bit-identical to the untraced run's", flush=True)
+
+
+def check_lm_workers(torch, kops) -> None:
+    """Phase 4d.6: the dense LM on the worker route, collect against the
+    interleaved tape, with the flash launches of every step."""
+    from repro_torch.core.chaos import SyncConfig
+    from repro_torch.core.types import WorkerConfig
+    from repro_torch.train.step import (init_worker_state, make_optimizer,
+                                        make_worker_train_step)
+
+    cfg = lm_cfg(LM_WORKER_LAYERS)
+    worker = WorkerConfig(**LM_WORKER)
+    shards = worker.logical_shards
+    batches = lm_batches(torch, cfg, LM_WORKER_STEPS, **LM_DATA)
+    per_step = {k: v * shards for k, v in lm_per_step(cfg).items()}
+    runs = {}
+    for label in ("collect", "interleave"):
+        sync = SyncConfig("bsp", layerwise=True,
+                          interleave=label == "interleave")
+        opt = make_optimizer(cfg, total_steps=LM_STEPS, kind="sgd")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_worker_state(
+            cfg, torch.Generator(device="cuda").manual_seed(0), sync, worker,
+            opt, device="cuda")
+        step = make_worker_train_step(cfg, sync, worker, opt, device="cuda")
+        losses, ms = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            kops.reset_launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step(state, b)
+            end.record()
+            end.synchronize()
+            counts = kops.launch_counts()
+            want = {k: per_step.get(k, 0) for k in counts}
+            if counts != want:
+                raise AssertionError(f"LM worker route {label}: launches "
+                                     f"{counts}, expected {want}")
+            losses.append(m["loss"].item())
+            ms.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated()
+        del state, step
+        runs[label] = losses
+        print(f"LM worker route {cfg.name} {label}: N={worker.workers} on "
+              f"{shards} micro-shards of {LM_DATA['batch'] // shards} x "
+              f"{LM_DATA['seq_len']} tokens, bsp, SGD; losses {losses}; "
+              f"flash launches a step {per_step} (forward twice a layer per "
+              f"shard, backward once); step ms {[f'{x:.3f}' for x in ms]} "
+              f"(CUDA events); peak device memory {peak / 1e9:.3f} GB; "
+              f"card {card_line()}", flush=True)
+    d = max(abs(a - b) / abs(b) for a, b in zip(runs["interleave"],
+                                                runs["collect"]))
+    print(f"LM worker route: the tape's losses against collect's, max "
+          f"relative |diff| {d:.3e} (held to {LM_LOSS_REL})", flush=True)
+    if not all(math.isfinite(v) for v in runs["interleave"]) or \
+            d > LM_LOSS_REL:
+        raise AssertionError(f"LM tape losses {runs['interleave']} against "
+                             f"collect's {runs['collect']}")
+    torch.cuda.empty_cache()
+
+
+def check_traced_serving(torch) -> None:
+    """Phase 4d.7: one traced serving run of rwkv6-1.6b at full width and
+    depth; its spans and bus counters against the engine's counters."""
+    import collections
+
+    from repro_torch.obs import MetricsBus, Tracer
+    from repro_torch.serve.engine import ServeEngine, poisson_trace
+
+    tracer, bus = Tracer("serve"), MetricsBus()
+    cfg = TRACED_SERVE
+    eng = ServeEngine(RWKV, smoke=False, slots=cfg["slots"],
+                      max_seq=cfg["max_seq"], tracer=tracer, bus=bus,
+                      device="cuda")
+    done = eng.run(poisson_trace(0, cfg["requests"], cfg["rate"],
+                                 eng.cfg.vocab_size,
+                                 prompt_lens=cfg["prompt_lens"],
+                                 max_new=cfg["gen"]))
+    names = collections.Counter(
+        e["name"].split("/")[0] for e in tracer.to_chrome()["traceEvents"]
+        if e["ph"] != "M")
+    s = bus.summary()
+    got = {"request spans": names["request"], "requests": len(done),
+           "decode spans": names["decode"],
+           "prefill spans": names["prefill"]}
+    c, bc = eng.counters, s["counters"]
+    if not (names["request"] == len(done) == cfg["requests"]
+            == bc["serve/requests_done"]
+            == s["histograms"]["serve/ttft_s"]["count"]
+            and names["decode"] == c["decode_dispatch"]
+            == bc["serve/decode_dispatch"]
+            and names["prefill"] == bc["serve/prefill_dispatch"]
+            and bc["serve/prefill_tokens"] == c["prefill_tokens"]
+            and bc["serve/decode_tokens"] == c["decode_tokens"]):
+        raise AssertionError(f"traced serving: {got}, bus {bc}, engine {c}")
+    print(f"traced serving {RWKV} (full width and depth, {cfg}): {got}, "
+          f"bus counters {bc} equal to the engine's {c}", flush=True)
+    del eng
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2620,7 +3175,6 @@ def lm_batches(torch, cfg, n, **data):
 def check_lm_training(torch, kops, launch_trace):
     """Phase 11; returns what the result line and phase 12 read."""
     from repro_torch.core.chaos import SyncConfig
-    from repro_torch.kernels.flash_attention import BWD_KERNELS_PER_CALL
 
     cfg = lm_cfg(LM_LAYERS)
     batches = lm_batches(torch, cfg, LM_STEPS, **LM_DATA)
@@ -2667,11 +3221,20 @@ def check_lm_training(torch, kops, launch_trace):
     def one():
         box[0], _ = step(box[0], batches[0])
 
-    prof = profile_steps(torch, one, steps=2)
-    if prof is None:
-        raise AssertionError("LM training step: the profiler recorded no "
-                             "device events; the backward's device kernels "
-                             "per call cannot be counted")
+    for _ in range(PROFILE_TRIES):
+        prof = profile_steps(torch, one, steps=2)
+        if prof is not None:
+            break
+    else:
+        print(f"LM training step trace: device busy share and ms by kernel "
+              f"not measured (torch.profiler recorded no device events in "
+              f"{PROFILE_TRIES} traces)", flush=True)
+        traced_checks_in_child("phase 11's flash backward device kernels "
+                               "per call")
+        return finish_lm_training(torch, kops, launch_trace, cfg, batches,
+                                  box, dict(cfg=cfg, counts=counts, peak=peak,
+                                            step_ms=step_ms, tokens=tokens,
+                                            losses=losses))
     busy, by_name, n_kernels, kernel_counts = prof
     groups = {}
     for name, v in by_name:
@@ -2696,13 +3259,29 @@ def check_lm_training(torch, kops, launch_trace):
     print(f"LM training step trace: {bwd:g} flash backward device "
           f"kernels per step, {per_call:g} per flash_attention_bwd call",
           flush=True)
+    check_bwd_kernels_per_call(per_call)
+    return finish_lm_training(torch, kops, launch_trace, cfg, batches, box,
+                              dict(cfg=cfg, counts=counts, peak=peak,
+                                   step_ms=step_ms, tokens=tokens,
+                                   losses=losses))
+
+
+def check_bwd_kernels_per_call(per_call) -> None:
+    from repro_torch.kernels.flash_attention import BWD_KERNELS_PER_CALL
+
     if per_call != BWD_KERNELS_PER_CALL:
         raise AssertionError(f"one flash_attention_bwd call ran "
                              f"{per_call} device kernels, expected "
                              f"{BWD_KERNELS_PER_CALL}")
-    del box
-    torch.cuda.empty_cache()
 
+
+def finish_lm_training(torch, kops, launch_trace, cfg, batches, box,
+                       result) -> dict:
+    """Phase 11's end: one chaos τ=1 superstep; returns ``result``."""
+    from repro_torch.core.chaos import SyncConfig
+
+    box.clear()
+    torch.cuda.empty_cache()
     chaos = SyncConfig("chaos", staleness=1)
     state, c_losses, c_counts, _ = lm_train_run(
         torch, kops, launch_trace, cfg, chaos, batches, superstep=True)
@@ -2710,8 +3289,45 @@ def check_lm_training(torch, kops, launch_trace):
           f"losses {c_losses}, launches {c_counts}", flush=True)
     del state
     torch.cuda.empty_cache()
-    return dict(cfg=cfg, counts=counts, peak=peak, step_ms=step_ms,
-                tokens=tokens, busy=busy, losses=losses)
+    return result
+
+
+def traced_checks(torch) -> int:
+    """``--traced-checks``: phase 2's instance checks and phase 11's flash
+    backward kernels per call (one call at qwen3-14b's training shape, as
+    phase 10 draws it) in this fresh process; NO_EVENTS_RC when its traces
+    hold no device events either."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import conv2d as K
+    from repro_torch.kernels import fc as FC
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import pool as P
+
+    build.lib()
+    cases = [(name, label, kern, instance[0]) for name, label, kern, _,
+             *instance in parity_cases(torch, K, P, FC) if instance]
+    g = torch.Generator(device="cuda").manual_seed(2468)
+    args = flash_bwd_inputs(torch, FA, g, 2, 2048, 40, 8, 128,
+                            torch.bfloat16, True)
+    try:
+        check_instances(torch, cases, fresh_process=False)
+        for _ in range(PROFILE_TRIES):
+            prof = profile_steps(torch, lambda: FA.flash_attention_bwd(
+                *args, causal=True), steps=1)
+            if prof is not None:
+                break
+        else:
+            raise NoDeviceEvents(f"torch.profiler recorded no device events"
+                                 f" in {PROFILE_TRIES} traces")
+    except NoDeviceEvents as e:
+        print(f"--traced-checks: {e}", flush=True)
+        return NO_EVENTS_RC
+    per_call = sum(n for name, n in prof[3].items() if "flash_bwd_" in name)
+    print(f"flash_attention_bwd at q(2, 2048, 40, 128) kv(2, 2048, 8, 128) "
+          f"bf16 causal: {per_call:g} flash backward device kernels a call "
+          f"(by torch.profiler)", flush=True)
+    check_bwd_kernels_per_call(per_call)
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -3931,8 +4547,9 @@ def kernel_bits(torch, K, FC, P, FA, W, build) -> None:
 
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
-    if args not in ([], ["--kernels"]):
-        print("usage: python3 chip_smoke.py [--kernels]", file=sys.stderr)
+    if args not in ([], ["--kernels"], ["--traced-checks"]):
+        print("usage: python3 chip_smoke.py [--kernels | --traced-checks]",
+              file=sys.stderr)
         return 2
     kernels_only = bool(args)
     import torch
@@ -3941,6 +4558,8 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs one CUDA card", file=sys.stderr)
         return 1
+    if args == ["--traced-checks"]:
+        return traced_checks(torch)
 
     import torch.nn.functional as F
 
@@ -4011,6 +4630,22 @@ def main(argv=None) -> int:
             resize = check_driver(torch, kops, Path(work))
             driver_times(torch, resize, Path(work))
         print(f"phase 4c took {time.perf_counter() - t0:.1f} s", flush=True)
+        phase(f"4d overlap and tracing: chaos-large at N="
+              f"{', '.join(map(str, OVERLAP_COUNTS))}, interleaved against "
+              f"collect, injected delay, the traced driver, {QWEN} on the "
+              f"worker route, traced serving")
+        t0 = time.perf_counter()
+        check_deadline(torch)
+        check_overlap(torch, kops, launch_trace, batches_np[:WORKER_K])
+        overlap_times(torch, images, labels)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+            check_traced_driver(torch, Path(work))
+        check_lm_workers(torch, kops)
+        check_traced_serving(torch)
+        off, win = clock_offset(torch)
+        print(f"deadline clock against the host clock at the end of phase "
+              f"4d: offset {off:.3f} us, window +-{win:.3f} us", flush=True)
+        print(f"phase 4d took {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.synchronize()
 
     phase("5 times at the training step's shapes (CUDA events, median of "
@@ -4140,6 +4775,10 @@ def main(argv=None) -> int:
           f"{training['tokens'] / training['step_ms'] * 1e3:.1f} tokens/s, "
           f"peak {training['peak'] / 1e9:.3f} GB; total "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    if UNTRACED:
+        print(f"not made, as torch.profiler recorded no device events in this"
+              f" process or in a fresh one: {'; '.join(UNTRACED)}",
+              flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,8 +22,13 @@ worker w owning rows ``[w·S/N, (w+1)·S/N)``.  The collectives below are
 functions over those axes that reduce in a fixed order, so every run
 gives the same bits; ``torch.distributed`` is not used.
 
-Not yet ported: the overlap harness's collective-latency injection
-(``collective_delay_ns_per_byte > 0`` raises).
+The overlap harness's collective-latency injection (DESIGN.md §8,
+``collective_delay_ns_per_byte > 0``) is a deadline pair: ``delay_start``
+stamps ``now + bytes · delay`` the moment a collective's operand exists,
+and ``delay_gate`` at the consumer sleeps only what remains.  On the card
+both are kernels on the device clock (``kernels/deadline.py``), ordered by
+the stream; on the CPU, host clock reads and sleeps.  Neither reads or
+writes any value of the tree, and with delay 0 nothing is enqueued.
 """
 from __future__ import annotations
 
@@ -33,6 +38,8 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.kernels import deadline
+from repro_torch.kernels.deadline import EPOCH as _EPOCH  # noqa: F401
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,11 +60,16 @@ class SyncConfig:
     layerwise: bool = False
     #: dtype of the chaos(τ>=1) ring slots; None = param dtype
     ring_dtype: Optional[str] = None
-    #: injected per-byte collective latency of the overlap harness; only 0
-    #: is ported
+    #: overlap harness: injected per-byte latency, in ns/byte, charged to
+    #: every explicit collective of the worker route (the gather in
+    #: ``gathered_shard_mean``, the localsgd average and its τ-ring); 0
+    #: enqueues nothing, so every bit-exactness contract is untouched
     collective_delay_ns_per_byte: float = 0.0
-    #: layerwise worker schedule of the overlap harness (the shard tape);
-    #: not consulted on one instance, and the worker route raises on it
+    #: layerwise worker schedule: fire each bucket's exchange the moment
+    #: that layer's gradient exists (the model's shard tape) instead of
+    #: collecting every gradient first; the collect schedule where the
+    #: model has no shard tape or the optimizer has a whole-tree
+    #: ``pre_apply``; not consulted on one instance
     interleave: bool = False
 
     def __post_init__(self):
@@ -68,10 +80,6 @@ class SyncConfig:
             raise ValueError(
                 "collective_delay_ns_per_byte must be >= 0, got "
                 f"{self.collective_delay_ns_per_byte}")
-        if self.collective_delay_ns_per_byte > 0:
-            raise NotImplementedError(
-                "collective_delay_ns_per_byte > 0 (the overlap harness's "
-                "latency injection) is not yet ported to repro_torch")
         if self.ring_dtype is not None:
             dtype_named(self.ring_dtype)  # fail fast on an unknown name
 
@@ -89,21 +97,71 @@ def zeros_like_f32(tree):
                                           device=x.device), tree)
 
 
+# ---------------------------------------------------------------------------
+# Collective-latency injection (the overlap harness, DESIGN.md §8).
+#
+# A deadline pair per injected collective: ``delay_start`` samples ``now +
+# bytes · delay`` when the collective's operand is ready (its issue time)
+# and ``delay_gate`` at the consumer sleeps only the remainder, so compute
+# enqueued between the two hides latency.  The JAX package ties its
+# callbacks into the data (an add of exact zero, a where-select) so XLA
+# cannot drop or move them; here the stream orders them, so the gate
+# passes the tree through untouched and ``delay_tie`` has no counterpart:
+# a stamp enqueued at a bucket's point of the backward walk runs there.
+# ---------------------------------------------------------------------------
+def tree_bytes(tree) -> int:
+    """Bytes of every leaf of ``tree`` in its own dtype."""
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def delay_start(anchor_tree, delay_ms: float) -> torch.Tensor:
+    """The deadline token ``now + delay_ms`` (0-dim f32, ms since
+    ``_EPOCH``), sampled once the work that produced ``anchor_tree`` is
+    done: on the card, in stream order after it."""
+    return deadline.stamp(tree_leaves(anchor_tree)[0], delay_ms)
+
+
+def delay_gate(tree, token: torch.Tensor, cap_ms: Optional[float] = None):
+    """Sleep until ``token``'s deadline (at most ``cap_ms``), then hand
+    ``tree`` on unchanged: the work enqueued after the gate waits for it."""
+    deadline.gate(token, cap_ms)
+    return tree
+
+
+def inject_blocking_delay(tree, n_bytes: int, delay_ns_per_byte: float):
+    """A synchronous collective: the deadline stamped when ``tree`` is
+    ready and gated at once, so the whole ``n_bytes · delay`` lands on the
+    critical path."""
+    return delay_gate(tree, delay_start(tree,
+                                        n_bytes * delay_ns_per_byte * 1e-6))
+
+
 def init_sync_state(sync: SyncConfig, params):
     from repro_torch.train.sync import get_strategy  # avoid an import cycle
     return get_strategy(sync).init_state(params)
 
 
-def localsgd_average(sync: SyncConfig, params, step: int):
+def localsgd_average(sync: SyncConfig, params, step: int,
+                     delay_ns_per_byte: float = 0.0):
     """Paper strategy-C boundary: every ``local_steps``-th step the
     workers' parameters are averaged.  On one instance (``axis_name``
     None) the average is the identity; on the worker route every leaf of
     ``params`` carries the leading worker axis and each worker gets a copy
-    of ``worker_mean``."""
+    of ``worker_mean``.
+
+    ``delay_ns_per_byte`` > 0 charges the all-reduce 2 × one worker's
+    param bytes synchronously at the boundary: the blocking baseline that
+    localsgd's τ-ring (``train/sync.py``) hides."""
     if sync.axis_name is None or (step + 1) % sync.local_steps != 0:
         return params
     n = tree_leaves(params)[0].shape[0]
-    return replicate_for_workers(worker_mean(params), n)
+    avg = replicate_for_workers(worker_mean(params), n)
+    if delay_ns_per_byte > 0:
+        # all-reduce effective bytes: 2 × the tree's (the JAX package's
+        # roofline convention)
+        avg = inject_blocking_delay(avg, 2 * tree_bytes(params) // n,
+                                    delay_ns_per_byte)
+    return avg
 
 
 def compress_grads(grads, residual):
@@ -118,7 +176,9 @@ def compress_grads(grads, residual):
 # ---------------------------------------------------------------------------
 # The worker route's collectives (the JAX package's shard_map path).
 # ---------------------------------------------------------------------------
-def gathered_shard_mean(stacks, n_shards: int):
+def gathered_shard_mean(stacks, n_shards: int,
+                        delay_ns_per_byte: float = 0.0,
+                        n_workers: Optional[int] = None):
     """Worker-count-invariant mean of stacked per-shard gradients.
 
     ``stacks`` holds the N workers' trees, in worker order, whose leaves
@@ -131,17 +191,28 @@ def gathered_shard_mean(stacks, n_shards: int):
     ``n_shards``, so its result does not depend on N; summing per worker
     and adding the partial sums would.  In one process the route's
     ``(n_shards, ...)`` stack is already that concatenation, and passes as
-    a single piece."""
-    inv = 1.0 / n_shards
+    a single piece; ``n_workers`` then names N (default: one per piece).
 
-    def one(*xs):
+    ``delay_ns_per_byte`` > 0 charges the gather its result bytes (the
+    ``(n_shards, ...)`` stacks in their wire dtype) synchronously, when
+    N > 1: the collect schedule's baseline.  The interleaved schedule
+    passes 0 and places its own deadline pair around the backward walk
+    (``train/step.py``)."""
+    inv = 1.0 / n_shards
+    n = len(stacks) if n_workers is None else n_workers
+
+    def cat(*xs):
         x = torch.cat(xs) if len(xs) > 1 else xs[0]
         if x.shape[0] != n_shards:
             raise ValueError(f"the workers' stacks hold {x.shape[0]} "
                              f"shards, expected {n_shards}")
-        return torch.sum(x.float(), 0) * inv
+        return x
 
-    return tree_map(one, *stacks)
+    tree = tree_map(cat, *stacks)
+    if delay_ns_per_byte > 0 and n > 1:
+        tree = inject_blocking_delay(tree, tree_bytes(tree),
+                                     delay_ns_per_byte)
+    return tree_map(lambda x: torch.sum(x.float(), 0) * inv, tree)
 
 
 def worker_sum(x):

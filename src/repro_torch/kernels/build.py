@@ -57,6 +57,8 @@ C_API = {
     "repro_flash_attention_bwd": [_P] * 10 + [_I] * 8 + [_F] + [_L] * 15
     + [_P],
     "repro_wkv6_fwd": [_P] * 7 + [_I] * 8 + [_L] * 15 + [_P],
+    "repro_deadline_stamp": [_P, _P, _L, _F, _P],
+    "repro_deadline_gate": [_P, _P, _L, _F, _P],
 }
 
 

@@ -24,8 +24,10 @@ on-device greedy argmax.
 
 Without ``--full-config`` the architecture's ``smoke_config()`` is served.
 ``--no-kernel`` takes the plain attention route (RWKV-6's serving runs
-no kernel either way).  ``--temperature`` > 0 and ``--trace-out`` raise:
-seeded sampling and the obs hooks are not ported yet.
+no kernel either way).  ``--trace-out t.json`` writes a Perfetto trace of
+the engine's lifecycle (``request/<rid>``, ``prefill`` and ``decode``
+spans) and prints the metrics bus's histograms.  ``--temperature`` > 0
+raises: seeded sampling is not ported yet.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ import time
 import numpy as np
 
 import repro_torch.configs as C
+from repro_torch.obs import MetricsBus, Tracer
 from repro_torch.serve.engine import (Request, RequestFeed, ServeEngine,
                                       poisson_trace)
 
@@ -43,18 +46,19 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 32,
           max_seq: int = 128, smoke: bool = True, seed: int = 0,
           prefill_mode: str = "batched", use_kernel: bool = True,
           temperature: float = 0.0, top_p: float = 1.0, *,
-          device="cuda", params=None, on_dispatch=None):
+          device="cuda", params=None, on_dispatch=None, tracer=None,
+          bus=None):
     """Static-batch serving: ``batch`` equal-length prompts all arrive at
     t=0, each generates ``gen`` tokens.  Returns the (batch, gen)
     generated tokens.  Dispatch contract: 1 batched prefill + (gen - 1)
-    decode dispatches.  ``params`` (else drawn from ``seed``), ``device``
-    and ``on_dispatch`` pass to ``ServeEngine``."""
+    decode dispatches.  ``params`` (else drawn from ``seed``), ``device``,
+    ``on_dispatch``, ``tracer`` and ``bus`` pass to ``ServeEngine``."""
     cfg = C.smoke(arch) if smoke else C.get(arch)
     eng = ServeEngine(arch, slots=batch, max_seq=max_seq, smoke=smoke,
                       seed=seed, prefill_mode=prefill_mode,
                       use_kernel=use_kernel, temperature=temperature,
                       top_p=top_p, device=device, params=params,
-                      on_dispatch=on_dispatch)
+                      on_dispatch=on_dispatch, tracer=tracer, bus=bus)
     rng = np.random.default_rng(seed)
     trace = [Request(rid=i,
                      tokens=rng.integers(0, cfg.vocab_size,
@@ -137,15 +141,14 @@ def main(argv=None):
                     help="> 0 is seeded sampling: not yet ported (raises)")
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--trace-out", default=None,
-                    help="the engine's obs trace: not yet ported (raises)")
+                    help="write a Perfetto trace.json of the engine "
+                         "lifecycle here (DESIGN.md §11)")
     ap.add_argument("--full-config", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    if args.trace_out:
-        raise NotImplementedError(
-            "--trace-out (the engine's obs hooks) is not yet ported to "
-            "repro_torch")
+    tracer = Tracer("serve") if args.trace_out else None
+    bus = MetricsBus() if args.trace_out else None
     use_kernel = not args.no_kernel
     if args.slots:
         finished, counters, times = serve_trace(
@@ -156,7 +159,7 @@ def main(argv=None):
             smoke=not args.full_config, seed=args.seed,
             prefill_mode=args.prefill_mode, use_kernel=use_kernel,
             temperature=args.temperature, top_p=args.top_p,
-            device=args.device)
+            tracer=tracer, bus=bus, device=args.device)
         toks = sum(f.prompt_len + len(f.tokens) for f in finished)
         dt = sum(times)
         print(f"[serve-trace {args.arch}] {len(finished)} requests, "
@@ -169,7 +172,14 @@ def main(argv=None):
               smoke=not args.full_config, seed=args.seed,
               prefill_mode=args.prefill_mode, use_kernel=use_kernel,
               temperature=args.temperature, top_p=args.top_p,
-              device=args.device)
+              device=args.device, tracer=tracer, bus=bus)
+    if tracer is not None:
+        tracer.write(args.trace_out)
+        s = bus.summary()
+        if s["histograms"]:
+            print("[obs] serve histograms:",
+                  {k: round(v["mean"], 4)
+                   for k, v in s["histograms"].items()})
 
 
 if __name__ == "__main__":

@@ -31,12 +31,23 @@ Features (DESIGN.md §3):
     them, so its checkpoints are worker-count-invariant;
   - straggler watchdog, fault injection (--inject, ``launch/faults.py``)
     and elastic resize of the worker count (``launch/elastic.py``);
-  - preemption simulation via --die-at-step (exit code 17).
+  - preemption simulation via --die-at-step (exit code 17);
+  - the overlap harness (DESIGN.md §8) on the layerwise worker route:
+    --interleave fires each bucket's exchange from inside the backward
+    walk, --collective-delay charges every exchange bytes × ns/byte;
+  - the span tracer (--trace-out, ``obs/trace.py``): ``superstep``,
+    ``checkpoint`` and ``resize`` spans, ``fault`` and ``straggler``
+    instants, the watchdog's ``watchdog/superstep_s`` counter and every
+    bucket's exchange stamps, as a Perfetto trace.
+
+    # 4 workers, interleaved exchanges at 1 ns/byte, traced, on the CPU:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch chaos-small \
+        --workers 4 --sync bsp --layerwise --interleave \
+        --collective-delay 1 --steps 8 --superstep 2 --batch 16 \
+        --trace-out trace.json --device cpu
 
 Every run is on ``cuda`` unless ``device="cpu"`` / ``--device cpu`` is
-given.  Not yet ported (ROADMAP A9): the span tracer (``--trace-out``),
-the collective-latency injection (``--collective-delay`` > 0) and the
-interleaved shard tape (``--interleave``); each raises.
+given.
 """
 from __future__ import annotations
 
@@ -64,7 +75,8 @@ from repro_torch.data.mnist import make_dataset
 from repro_torch.data.pipeline import ImagePipeline, TokenPipeline
 from repro_torch.launch.elastic import ResizeController
 from repro_torch.launch.faults import FaultPlan
-from repro_torch.obs import JsonlSink, MetricsBus
+from repro_torch.obs import JsonlSink, MetricsBus, Tracer
+from repro_torch.obs import trace as obs_trace
 from repro_torch.train.step import (init_train_state, init_worker_state,
                                     make_optimizer, make_superstep,
                                     make_worker_superstep)
@@ -87,13 +99,16 @@ class StragglerWatchdog:
     phantom straggler.  The driver builds a fresh watchdog after an
     elastic resize for the same reason.
 
-    Every observation (warmup included) goes to the metrics bus when one
-    is attached: a ``watchdog/superstep_s`` gauge, histogram and series.
+    Every observation (warmup included) goes to the obs layer when one is
+    attached: a ``watchdog/superstep_s`` gauge, histogram and series on the
+    metrics bus, a counter track on the tracer, so a stall shows in the
+    trace before any eviction fires.
     """
 
     def __init__(self, window: int | None = None, z: float = 3.0,
                  superstep: int = 1, max_flags: int = 64, warmup: int = 2,
-                 bus: MetricsBus | None = None):
+                 bus: MetricsBus | None = None,
+                 tracer: Tracer | None = None):
         if window is None:
             window = max(8, 200 // max(superstep, 1))
         self.times: deque = deque(maxlen=window)
@@ -102,6 +117,7 @@ class StragglerWatchdog:
         self.flagged: deque = deque(maxlen=max_flags)
         self.warmup = warmup
         self.bus = bus
+        self.tracer = tracer
 
     def observe(self, step: int, dt: float) -> bool:
         """Record one superstep wall time; True when it was flagged as a
@@ -111,6 +127,8 @@ class StragglerWatchdog:
             self.bus.gauge("watchdog/superstep_s", dt)
             self.bus.observe("watchdog/superstep_s", dt)
             self.bus.series("watchdog/superstep_s", step, dt)
+        if self.tracer is not None:
+            self.tracer.counter("watchdog/superstep_s", dt)
         if self.warmup > 0:
             self.warmup -= 1
             return False
@@ -126,6 +144,9 @@ class StragglerWatchdog:
                 if self.bus is not None:
                     self.bus.event("straggler", step=step, dt_s=dt,
                                    mean_s=mu)
+                if self.tracer is not None:
+                    self.tracer.instant("straggler", step=step, dt_s=dt,
+                                        mean_s=mu)
                 print(f"[watchdog] superstep ending at {step} straggled: "
                       f"{dt * 1e3:.1f}ms vs mean {mu * 1e3:.1f}ms",
                       flush=True)
@@ -224,20 +245,6 @@ def superstep_schedule(start: int, steps: int, k: int):
     return [(s, min(k, steps - s)) for s in range(start, steps, max(k, 1))]
 
 
-def refuse_unported(trace_out=None, collective_delay: float = 0.0,
-                    interleave: bool = False):
-    """Raise on the options of the overlap harness and the tracer."""
-    for given, what in ((trace_out, "--trace-out (the span tracer)"),
-                        (collective_delay > 0,
-                         "--collective-delay > 0 (the collective-latency "
-                         "injection)"),
-                        (interleave, "--interleave (the interleaved shard "
-                                     "tape)")):
-        if given:
-            raise NotImplementedError(
-                f"{what} is not yet ported to repro_torch (ROADMAP A9)")
-
-
 def train(arch: str, steps: int, sync_mode: str = "bsp", batch: int = 8,
           seq: int = 256, ckpt_dir: str | None = None,
           ckpt_every: int = 50, die_at_step: int | None = None,
@@ -258,14 +265,19 @@ def train(arch: str, steps: int, sync_mode: str = "bsp", batch: int = 8,
     the losses of the steps this call ran (from the resumed step on).
     ``use_kernel`` is accepted for the JAX package's call sites: on
     ``cuda`` the kernels run whatever it says, on the CPU their plain
-    versions."""
+    versions.  ``trace_out`` installs a tracer before any step is built
+    (the step builders consult it then), restores the previous one at the
+    end and writes the trace, also when the run dies."""
     del use_kernel
     if superstep < 1:
         raise ValueError(f"superstep must be >= 1, got {superstep}")
-    refuse_unported(trace_out, collective_delay, interleave)
+    # the bus is always present (per-step cost: one dict store); the
+    # tracer only when asked, so untraced steps enqueue no stamp
     bus = metrics_bus if metrics_bus is not None else MetricsBus()
     if bus.sink is None and metrics_interval > 0 and metrics_out:
         bus.sink = JsonlSink(metrics_out + ".jsonl")
+    tracer = Tracer("train") if trace_out else None
+    prev_tracer = obs_trace.set_tracer(tracer) if tracer else None
     prev_handler = signal.getsignal(signal.SIGUSR1)
     try:
         return _train(arch, steps, sync_mode, batch, seq, ckpt_dir,
@@ -273,12 +285,15 @@ def train(arch: str, steps: int, sync_mode: str = "bsp", batch: int = 8,
                       smoke, superstep, workers, logical_shards, staleness,
                       layerwise, optim, ring_dtype, inject, inject_seed,
                       metrics_out, evict_stragglers, readmit_after,
-                      micro_batches, layer_chunk, metrics_interval, bus,
-                      device)
+                      collective_delay, interleave, micro_batches,
+                      layer_chunk, metrics_interval, bus, tracer, device)
     finally:
         if (prev_handler is not None
                 and threading.current_thread() is threading.main_thread()):
             signal.signal(signal.SIGUSR1, prev_handler)
+        if tracer is not None:
+            obs_trace.set_tracer(prev_tracer)
+            tracer.write(trace_out)
         bus.close()
 
 
@@ -286,7 +301,8 @@ def _train(arch, steps, sync_mode, batch, seq, ckpt_dir, ckpt_every,
            die_at_step, base_lr, compress, log_every, smoke, superstep,
            workers, logical_shards, staleness, layerwise, optim, ring_dtype,
            inject, inject_seed, metrics_out, evict_stragglers, readmit_after,
-           micro_batches, layer_chunk, metrics_interval, bus, device):
+           collective_delay, interleave, micro_batches, layer_chunk,
+           metrics_interval, bus, tracer, device):
     plan = FaultPlan.from_spec(inject, seed=inject_seed)
     cfg = C.smoke(arch) if smoke else C.get(arch)
     if micro_batches is not None:
@@ -297,7 +313,9 @@ def _train(arch, steps, sync_mode, batch, seq, ckpt_dir, ckpt_every,
                                kind=optim)
     sync = SyncConfig(mode=sync_mode, compress=compress,
                       staleness=staleness, layerwise=layerwise,
-                      ring_dtype=ring_dtype)
+                      ring_dtype=ring_dtype,
+                      collective_delay_ns_per_byte=collective_delay,
+                      interleave=interleave)
     gen = torch.Generator().manual_seed(0)
     controller = None
     if workers is not None:
@@ -346,7 +364,7 @@ def _train(arch, steps, sync_mode, batch, seq, ckpt_dir, ckpt_every,
             state, start = mgr.restore(state)
             print(f"[train] resumed from step {start}", flush=True)
 
-    watchdog = StragglerWatchdog(superstep=superstep, bus=bus)
+    watchdog = StragglerWatchdog(superstep=superstep, bus=bus, tracer=tracer)
     # losses live on the bus as a step-keyed series: an elastic
     # ckpt-restore rung may REPLAY a few steps, and replayed entries
     # overwrite their originals instead of duplicating
@@ -362,9 +380,11 @@ def _train(arch, steps, sync_mode, batch, seq, ckpt_dir, ckpt_every,
         try:
             for s0, k, dev_batch in feed:
                 t0 = time.perf_counter()
-                state, metrics = super_fn(state, dev_batch)
-                # ONE host sync per K steps: the (K,) loss vector
-                loss_vec = metrics["loss"].detach().cpu().numpy()
+                with obs_trace.span("superstep", step_start=s0, k=k):
+                    state, metrics = super_fn(state, dev_batch)
+                    # ONE host sync per K steps: the (K,) loss vector,
+                    # inside the span so it covers the device's time
+                    loss_vec = metrics["loss"].detach().cpu().numpy()
                 end = s0 + k
                 for t in range(s0, end):
                     bus.series("train/loss", t, float(loss_vec[t - s0]))
@@ -380,6 +400,8 @@ def _train(arch, steps, sync_mode, batch, seq, ckpt_dir, ckpt_every,
                 if plan is not None and len(plan.log) > faults_seen:
                     for f in plan.log[faults_seen:]:
                         bus.event("fault", **f)
+                        if tracer is not None:
+                            tracer.instant("fault", **f)
                     faults_seen = len(plan.log)
                 if metrics_interval > 0 and (
                         end // metrics_interval > s0 // metrics_interval):
@@ -394,7 +416,9 @@ def _train(arch, steps, sync_mode, batch, seq, ckpt_dir, ckpt_every,
                         print(f"[train {arch} sync={sync_mode}] step {t} "
                               f"loss={loss_vec[t - s0]:.4f}", flush=True)
                 if mgr and end // ckpt_every > s0 // ckpt_every:
-                    mgr.save(end, checkpoint_tree(state), blocking=False)
+                    with obs_trace.span("checkpoint", step=end):
+                        mgr.save(end, checkpoint_tree(state),
+                                 blocking=False)
                     saved_at = end
                 if die_at_step is not None and end >= die_at_step:
                     if mgr:
@@ -427,24 +451,31 @@ def _train(arch, steps, sync_mode, batch, seq, ckpt_dir, ckpt_every,
         if mgr:
             mgr.wait()  # never race an async save with the restore rung
         target, reason = resize_request
-        state, new_super_fn, outcome = controller.resize(
-            state, target, next_start, reason=reason)
+        with obs_trace.span("resize", target=target, reason=reason,
+                            at_step=next_start):
+            state, new_super_fn, outcome = controller.resize(
+                state, target, next_start, reason=reason)
         bus.event("resize", **outcome.as_dict())
         bus.gauge("train/workers", controller.worker.workers)
         if new_super_fn is not None:
             super_fn = new_super_fn
             # a new worker count is a new timing regime: stale window stats
             # would flag the first superstep after the resize
-            watchdog = StragglerWatchdog(superstep=superstep, bus=bus)
+            watchdog = StragglerWatchdog(superstep=superstep, bus=bus,
+                                         tracer=tracer)
         if outcome.restart_step is not None:
             next_start = outcome.restart_step  # replay from the checkpoint
 
     losses = bus.series_sorted("train/loss")
+    print(f"[train] {work_steps} steps in {work_s:.3f} s: "
+          f"{work_s * 1e3 / max(work_steps, 1):.3f} ms a step (host clock "
+          f"around each superstep, its loss read included)", flush=True)
     if mgr:
         if saved_at == steps:
             mgr.wait()
         else:
-            mgr.save(steps, checkpoint_tree(state), blocking=True)
+            with obs_trace.span("checkpoint", step=steps):
+                mgr.save(steps, checkpoint_tree(state), blocking=True)
     if plan is not None and len(plan.log) > faults_seen:
         for f in plan.log[faults_seen:]:
             bus.event("fault", **f)
@@ -510,7 +541,9 @@ def main(argv=None):
                     help="write a JSON document with the per-step loss "
                          "sequence, resize outcomes, and fired faults")
     ap.add_argument("--trace-out", default=None,
-                    help="the span tracer's trace: not yet ported (raises)")
+                    help="write a Perfetto trace.json (and a .jsonl) of "
+                         "the run here: superstep, checkpoint and resize "
+                         "spans and every bucket's exchange stamps")
     ap.add_argument("--metrics-interval", type=int, default=0,
                     help="emit a metrics-bus snapshot every N steps — to "
                          "<metrics-out>.jsonl when --metrics-out is set, "
@@ -522,11 +555,14 @@ def main(argv=None):
                     help="re-admit a straggler-evicted worker after this "
                          "many consecutive clean supersteps")
     ap.add_argument("--collective-delay", type=float, default=0.0,
-                    help="> 0 is the collective-latency injection: not yet "
-                         "ported (raises)")
+                    help="overlap harness: injected collective latency in "
+                         "ns/byte on the worker route's exchanges (0 "
+                         "enqueues nothing)")
     ap.add_argument("--interleave", action="store_true",
-                    help="the interleaved shard tape: not yet ported "
-                         "(raises)")
+                    help="layerwise worker route: fire each bucket's "
+                         "exchange inside the backward walk (the shard "
+                         "tape) instead of collecting every gradient "
+                         "first")
     ap.add_argument("--micro-batches", type=int, default=None,
                     help="override the arch's micro-batch accumulation "
                          "count (single-instance route)")

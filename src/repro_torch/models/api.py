@@ -28,6 +28,11 @@ state and the token-shift carries), ``decode`` and ``prefill`` (which
 takes ``chunked=True`` for the parallel form), and no ``loss_and_grads``
 yet.
 
+``shard_bucket_grads`` (the cnn and dense families) is the worker
+route's interleaved tape: the backward over a list of micro-shards,
+firing ``on_bucket(bucket, grads_b)`` with each bucket's stacked
+gradient the moment it exists.
+
 ``loss_and_grads``'s tape mode calls ``tape(bucket, params_b, grads_b) ->
 new_params_b | None`` once per bucket in reverse-production order: the CNN
 family chains each call to that layer's gradient production; the dense LM
@@ -70,6 +75,13 @@ class ModelOps:
     abstract_cache: Optional[Callable] = None
     decode: Optional[Callable] = None
     prefill: Optional[Callable] = None
+    #: the worker route's interleaved tape (DESIGN.md §8), families that
+    #: have one: ``shard_bucket_grads(shard_params, shards, on_bucket) ->
+    #: (losses, metrics, grads)`` over a list of S micro-shard batches
+    #: (``shard_params[s]`` the tree shard s runs at), calling
+    #: ``on_bucket(bucket, grads_b_stacked)`` the moment each bucket's
+    #: ``(S, ...)`` gradient exists
+    shard_bucket_grads: Optional[Callable] = None
 
 
 def default_bucket_spec(abstract_params: dict) -> tuple:
@@ -138,6 +150,10 @@ def get_ops(cfg: ArchConfig, device="cuda") -> ModelOps:
             params, torch.as_tensor(images, device=device), cfg),
         bucket_spec=lambda: cnn.bucket_spec(cfg),
         loss_and_grads=loss_and_grads,
+        shard_bucket_grads=lambda shard_params, shards, on_bucket:
+        cnn.loss_and_shard_bucket_grads(
+            shard_params, [_to_device(b, device) for b in shards], cfg,
+            on_bucket),
     )
 
 
@@ -175,6 +191,11 @@ def _lm_ops(cfg: ArchConfig, device: torch.device, dtype) -> ModelOps:
                 new_params.update(out)
         return loss, metrics, new_params, grads
 
+    def shard_bucket_grads(shard_params, shards, on_bucket, use_kernel=True):
+        return lm.loss_and_shard_bucket_grads(
+            shard_params, [_to_device(b, device) for b in shards], cfg,
+            on_bucket, use_kernel)
+
     return ModelOps(
         cfg=cfg, device=device,
         loss=lambda params, batch, use_kernel=True: lm.loss_fn(
@@ -183,6 +204,7 @@ def _lm_ops(cfg: ArchConfig, device: torch.device, dtype) -> ModelOps:
                                                         **kw),
         bucket_spec=lambda: lm.bucket_spec(cfg),
         loss_and_grads=loss_and_grads,
+        shard_bucket_grads=shard_bucket_grads,
         init=lambda generator: lm.build_params(
             cfg, L.InitFactory(generator, dtype, device)),
         abstract_params=lambda: lm.build_params(cfg, L.ShapeFactory(dtype)),

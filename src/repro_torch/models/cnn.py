@@ -165,6 +165,18 @@ def _layer_bwd_fns(cfg: ArchConfig):
     return out
 
 
+def _head(logits, labels):
+    """(loss, error rate, dlogits) of the mean softmax cross-entropy: the
+    loss kernel's forward, then mean's and the loss's backward, the
+    cotangents autograd forms."""
+    logits = logits.float()
+    losses, dl = FC.softmax_xent_fwd(logits, labels)
+    loss = losses.mean()
+    err = (logits.argmax(-1) != labels).float().mean()
+    g = torch.ones_like(loss).expand(losses.shape[0]) / losses.shape[0]
+    return loss, err, kops.softmax_xent_bwd(dl, g)
+
+
 def loss_and_bucket_grads(params, batch, cfg: ArchConfig, tape):
     """The paper's §3 update rule as a bucket tape: non-instant per-bucket
     weight updates during back-propagation.
@@ -179,7 +191,6 @@ def loss_and_bucket_grads(params, batch, cfg: ArchConfig, tape):
     Returns ``(loss, metrics, new_params, grads)`` with ``grads`` the fresh
     float32 per-bucket gradients.
     """
-    labels = batch["labels"]
     buckets = {b.name: b for b in bucket_spec(cfg)}
     layers = _layer_fns(cfg)
     with torch.no_grad():
@@ -188,15 +199,9 @@ def loss_and_bucket_grads(params, batch, cfg: ArchConfig, tape):
         for name, fn in layers:
             x = fn(x) if name is None else fn(params[name], x)
             acts.append(x)
-        logits = x.float()
-        losses, dl = FC.softmax_xent_fwd(logits, labels)
-        loss = losses.mean()
-        err = (logits.argmax(-1) != labels).float().mean()
+        loss, err, dy = _head(x, batch["labels"])
         metrics = {"ce": loss, "error_rate": err,
                    "aux": torch.zeros((), device=loss.device)}
-        # mean's backward, then the loss's: the cotangents autograd forms
-        g = torch.ones_like(loss).expand(losses.shape[0]) / losses.shape[0]
-        dy = kops.softmax_xent_bwd(dl, g)
 
         new_params = dict(params)
         grads = {}
@@ -213,3 +218,54 @@ def loss_and_bucket_grads(params, batch, cfg: ArchConfig, tape):
             if out is not None:
                 new_params.update(out)
     return loss, metrics, new_params, grads
+
+
+def loss_and_shard_bucket_grads(shard_params, shards, cfg: ArchConfig,
+                                on_bucket):
+    """The worker route's bucket tape (DESIGN.md §8): the per-layer
+    backward walk over a list of micro-shards, calling ``on_bucket(bucket,
+    {layer: dp_stacked})`` the moment each layer's ``(S, ...)`` gradient
+    exists, so the bucket's exchange can be issued while the other
+    layers' backward is still to run.
+
+    ``shards`` is the list of the S micro-shard batches, ``shard_params``
+    the param tree each one runs at (its worker's).  The forward runs
+    layer by layer over the shards and keeps each layer's inputs and
+    outputs; the backward visits the layers in reverse through
+    ``_layer_bwd_fns``, one launch per shard and layer.  Every launch is
+    the one the collect schedule's autograd issues on the same inputs, so
+    the result equals the per-shard ``loss_and_grads`` stacked in shard
+    order bit for bit: ``(losses (S,), metrics {(S,)}, grads {layer: (S,
+    ...) f32})``.  (The JAX package's tape agrees with its collect
+    schedule only to ~1 ulp: XLA canonicalises the per-layer map bodies
+    differently.)"""
+    buckets = {b.name: b for b in bucket_spec(cfg)}
+    layers = _layer_fns(cfg)
+    with torch.no_grad():
+        xs = [b["images"] for b in shards]
+        acts = [xs]  # acts[i] / acts[i + 1] = layer i's inputs / outputs
+        for name, fn in layers:
+            xs = [fn(x) if name is None else fn(p[name], x)
+                  for p, x in zip(shard_params, xs)]
+            acts.append(xs)
+        heads = [_head(x, b["labels"]) for x, b in zip(xs, shards)]
+        losses = torch.stack([h[0] for h in heads])
+        metrics = {"ce": losses,
+                   "error_rate": torch.stack([h[1] for h in heads]),
+                   "aux": torch.zeros_like(losses)}
+        dys = [h[2] for h in heads]
+
+        grads = {}
+        for (name, _fn), bwd, x_in, y_out in zip(
+                reversed(layers), reversed(_layer_bwd_fns(cfg)),
+                reversed(acts[:-1]), reversed(acts[1:])):
+            if name is None:
+                dys = [bwd(x, y, g) for x, y, g in zip(x_in, y_out, dys)]
+                continue
+            outs = [bwd(p[name], x, y, g)
+                    for p, x, y, g in zip(shard_params, x_in, y_out, dys)]
+            dys = [o[1] for o in outs]
+            grads[name] = {k: torch.stack([o[0][k].float() for o in outs])
+                           for k in outs[0][0]}
+            on_bucket(buckets[name], {name: grads[name]})
+    return losses, metrics, grads

@@ -298,6 +298,126 @@ def loss_fn(params, batch, cfg: ArchConfig, use_kernel: bool = True):
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
+def loss_and_shard_bucket_grads(shard_params, shards, cfg: ArchConfig,
+                                on_bucket, use_kernel: bool = True):
+    """The worker route's bucket tape for the dense LM (DESIGN.md §8,
+    §10): the chunked backward walk over a list of micro-shards, calling
+    ``on_bucket(bucket, {key: dp_stacked})`` the moment each bucket's
+    ``(S, ...)`` gradient exists.
+
+    ``shards`` is the list of the S micro-shard token batches,
+    ``shard_params`` the param tree each one runs at.  The forward runs
+    chunk by chunk and keeps each chunk's input activations; the backward
+    re-runs one chunk's forward under autograd at a time, which is the
+    remat recompute it replaces (so the flash kernels launch as on the
+    collect schedule with ``cfg.remat``: the forward twice a layer and the
+    backward once, per shard).  Buckets fire in reverse production order:
+    out_embed (untied) -> final_norm -> chunks descending -> embed, the
+    tied head's term folded into embed.  Returns ``(losses (S,), metrics
+    {(S,)}, grads {key: (S, ...) f32})``, within f32 rounding of the
+    per-shard ``loss_and_grads``: the tape sums the embedding's two terms
+    in f32 where autograd accumulates them in the param dtype."""
+    if any("patch_embeds" in b for b in shards):
+        raise NotImplementedError(
+            "the LM shard tape does not take VLM patch embeddings; run the "
+            "worker route without interleave for patch-embed batches")
+    _require_dense(cfg)
+    plain = dataclasses.replace(cfg, remat=False)
+    buckets = {b.name: b for b in bucket_spec(cfg)}
+    ckeys = chunk_keys(cfg)
+    device = shard_params[0]["embed"].device
+    toks = [torch.as_tensor(b["tokens"], device=device).long()
+            for b in shards]
+    labs = [torch.as_tensor(b["labels"], device=device).long()
+            for b in shards]
+    positions = torch.arange(toks[0].shape[-1], device=device)[None, :]
+    out_key = "out_embed" if "out_embed" in shard_params[0] else "embed"
+
+    def leaf_grads(tree):
+        """(tree of fresh leaves that require grad, their flat list)."""
+        t = _tree_map(lambda a: a.detach().requires_grad_(True), tree)
+        leaves = []
+        _tree_map(leaves.append, t)
+        return t, leaves
+
+    def unflat(tree, flat):
+        it = iter(flat)
+        return _tree_map(lambda _: next(it).float(), tree)
+
+    def stacked(trees):
+        return _tree_map(lambda *xs: torch.stack(xs), *trees)
+
+    # forward, keeping each chunk's input activations
+    with torch.no_grad():
+        xs = [embed_tokens(p, t, cfg) for p, t in zip(shard_params, toks)]
+        chunk_in = []
+        for key in ckeys:
+            chunk_in.append(xs)
+            xs = [_chunk_forward(p[key], x, plain, positions, use_kernel)
+                  for p, x in zip(shard_params, xs)]
+
+    # head: rms_norm + fused CE, the per-shard loss, head grads and dy
+    ces, d_norm, d_out, dys = [], [], [], []
+    for p, x, lab in zip(shard_params, xs, labs):
+        hp, leaves = leaf_grads({"final_norm": p["final_norm"],
+                                 "out": p[out_key]})
+        x_ = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            ce = L.fused_ce(L.rms_norm(x_, hp["final_norm"]), hp["out"],
+                            lab, cfg.vocab_size)
+            dn, do, dx = torch.autograd.grad(ce, leaves + [x_])
+        ces.append(ce.detach())
+        d_norm.append(dn.float())
+        d_out.append(do.float())
+        dys.append(dx)
+    ce = torch.stack(ces)
+    aux = torch.zeros_like(ce)
+    losses = ce + 0.01 * aux
+    metrics = {"ce": ce, "aux": aux}
+
+    # each per-shard list is dropped once stacked: at full width a list
+    # holds as much as the stack it feeds
+    grads = {}
+    d_out = torch.stack(d_out)
+    if out_key == "out_embed":
+        grads["out_embed"], d_out = d_out, None
+        on_bucket(buckets["out_embed"], {"out_embed": grads["out_embed"]})
+    grads["final_norm"] = torch.stack(d_norm)
+    del d_norm
+    on_bucket(buckets["final_norm"], {"final_norm": grads["final_norm"]})
+
+    for key, x_ins in zip(reversed(ckeys), reversed(chunk_in)):
+        dps, new_dys = [], []
+        for p, x, g in zip(shard_params, x_ins, dys):
+            st, leaves = leaf_grads(p[key])
+            x_ = x.detach().requires_grad_(True)
+            with torch.enable_grad():
+                y = _chunk_forward(st, x_, plain, positions, use_kernel)
+                flat = torch.autograd.grad(y, leaves + [x_], g)
+            dps.append(unflat(st, flat[:-1]))
+            new_dys.append(flat[-1])
+            del flat
+        dys = new_dys
+        grads[key] = stacked(dps)
+        del dps
+        on_bucket(buckets[key], {key: grads[key]})
+
+    d_embed = []
+    for p, t, g in zip(shard_params, toks, dys):
+        e = p["embed"].detach().requires_grad_(True)
+        with torch.enable_grad():
+            (de,) = torch.autograd.grad(embed_tokens({"embed": e}, t, cfg),
+                                        [e], g)
+        d_embed.append(de.float())
+        del de
+    grads["embed"] = torch.stack(d_embed)
+    del d_embed
+    if d_out is not None:
+        grads["embed"] = grads["embed"] + d_out  # the tied head's term
+    on_bucket(buckets["embed"], {"embed": grads["embed"]})
+    return losses, metrics, grads
+
+
 def embed_tokens(params, tokens, cfg: ArchConfig):
     return params["embed"][tokens]
 

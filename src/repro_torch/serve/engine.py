@@ -25,14 +25,21 @@ decode step), sampling is greedy, and every per-row computation is
 independent of its batch neighbours — so a (seed, trace) pair generates
 the same tokens regardless of slot count or admission interleaving.
 
+Observability (DESIGN.md §11): with a ``tracer`` / ``bus`` attached the
+engine emits the admit -> prefill -> decode -> evict lifecycle: a
+``request/<rid>`` span per request on its slot's track, ``prefill`` and
+``decode`` dispatch spans on the engine track, slot-occupancy and
+queue-depth gauges, TTFT and TPOT histograms, and dispatch and token
+counters.  Without them no obs code runs.
+
 The port runs eagerly: there is no per-shape compile cache, but the
 dispatch contract is the reference's.  Seeded sampling (``temperature >
-0``) and the obs hooks (``tracer``, ``bus``) are not ported yet: the
-reference folds (request id, position) through ``jax.random``, which torch
-cannot reproduce.
+0``) is not ported yet: the reference folds (request id, position)
+through ``jax.random``, which torch cannot reproduce.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -163,8 +170,6 @@ class ServeEngine:
             raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
         if temperature > 0.0:
             raise _not_ported("seeded sampling (temperature > 0)")
-        if tracer is not None or bus is not None:
-            raise _not_ported("the engine's obs hooks (tracer, bus)")
         del top_p, sample_seed
         if isinstance(arch, ArchConfig):
             self.cfg = arch
@@ -189,6 +194,10 @@ class ServeEngine:
                          "prefill_tokens": 0, "decode_tokens": 0}
         self.last_tok = np.zeros((slots, 1), np.int32)
         self.on_dispatch = on_dispatch
+        self.tracer = tracer
+        self.bus = bus
+        self._submit_us: dict = {}           # rid -> submit time (trace µs)
+        self._submit_t: dict = {}            # rid -> submit time.monotonic()
 
     def _dispatched(self, kind: str, t0: float) -> None:
         if self.on_dispatch is not None:
@@ -218,8 +227,33 @@ class ServeEngine:
         return self._greedy(logits[rows, last]), sub
 
     def _admit(self, reqs) -> None:
+        tr, bus = self.tracer, self.bus
         slots = self.kv.alloc(len(reqs))
         lens = np.array([len(r.tokens) for r in reqs], np.int32)
+        ctx = (tr.span("prefill", thread="engine", cat="serve",
+                       batch=len(reqs), tokens=int(lens.sum()),
+                       mode=self.prefill_mode)
+               if tr is not None else contextlib.nullcontext())
+        with ctx:
+            first = self._prefill_into(reqs, slots, lens)
+        self.counters["prefill_tokens"] += int(lens.sum())
+        if bus is not None:
+            bus.counter("serve/prefill_dispatch")
+            bus.counter("serve/prefill_tokens", int(lens.sum()))
+        now = time.monotonic()
+        for i, (r, s) in enumerate(zip(reqs, slots)):
+            self.last_tok[s, 0] = first[i, 0]
+            st = {"req": r, "out": [int(first[i, 0])],
+                  "admit_step": self.step_idx, "t_first": now}
+            if tr is not None:
+                st["t0_us"] = self._submit_us.pop(r.rid, tr.now_us())
+            if bus is not None:
+                bus.observe("serve/ttft_s",
+                            now - self._submit_t.pop(r.rid, now))
+            self.active[s] = st
+
+    def _prefill_into(self, reqs, slots, lens):
+        """Prefill ``reqs`` into ``slots``; their first tokens (rows, 1)."""
         if self.prefill_mode == "batched":
             T = _pow2_bucket(int(lens.max()))
             if not self.kv.stateful:
@@ -252,19 +286,20 @@ class ServeEngine:
             sub = {k: torch.cat([row[k] for row in rows], dim=1)
                    for k in rows[0]}
             self.kv.adopt(sub, slots, lens)
-        self.counters["prefill_tokens"] += int(lens.sum())
-        for i, (r, s) in enumerate(zip(reqs, slots)):
-            self.last_tok[s, 0] = first[i, 0]
-            self.active[s] = {"req": r, "out": [int(first[i, 0])],
-                              "admit_step": self.step_idx}
+        return first
 
     # -- scheduler ----------------------------------------------------------
     def submit(self, req: Request) -> None:
         self.kv.validate_admit(len(req.tokens), req.max_new)
+        if self.tracer is not None:
+            self._submit_us[req.rid] = self.tracer.now_us()
+        if self.bus is not None:
+            self._submit_t[req.rid] = time.monotonic()
         self.pending.append(req)
         self.pending.sort(key=lambda r: (r.arrival, r.rid))
 
     def _evict_done(self) -> list:
+        tr, bus = self.tracer, self.bus
         done = []
         for slot in sorted(self.active):
             st = self.active[slot]
@@ -273,6 +308,21 @@ class ServeEngine:
                     rid=st["req"].rid, prompt_len=len(st["req"].tokens),
                     tokens=np.array(st["out"], np.int32),
                     admit_step=st["admit_step"], finish_step=self.step_idx))
+                if tr is not None:
+                    t1 = tr.now_us()
+                    tr.complete(f"request/{st['req'].rid}",
+                                st.get("t0_us", t1), t1,
+                                thread=f"slot{slot}", cat="serve",
+                                rid=st["req"].rid,
+                                prompt_len=len(st["req"].tokens),
+                                generated=len(st["out"]))
+                if bus is not None:
+                    n = len(st["out"])
+                    if n > 1:
+                        bus.observe("serve/tpot_s",
+                                    (time.monotonic() - st["t_first"])
+                                    / (n - 1))
+                    bus.counter("serve/requests_done")
                 del self.active[slot]
                 self.kv.release(slot)
         return done
@@ -289,15 +339,27 @@ class ServeEngine:
             grab.append(self.pending.pop(0))
         if grab:
             self._admit(grab)
+        tr, bus = self.tracer, self.bus
+        if bus is not None:
+            bus.gauge("serve/slot_occupancy",
+                      len(self.active) / self.kv.slots)
+            bus.gauge("serve/queue_depth", len(self.pending))
         done = self._evict_done()            # max_new == 1 finishes here
         if not self.active:
             self.clock += self.step_dt
             self.step_idx += 1
             return done
+        ctx = (tr.span("decode", thread="engine", cat="serve",
+                       active=len(self.active), step=self.step_idx)
+               if tr is not None else contextlib.nullcontext())
         t0 = time.perf_counter()
-        nxt = self._decode(self.last_tok, self.kv.cursors.copy())
+        with ctx:
+            nxt = self._decode(self.last_tok, self.kv.cursors.copy())
         self.counters["decode_dispatch"] += 1
         self._dispatched("decode", t0)
+        if bus is not None:
+            bus.counter("serve/decode_dispatch")
+            bus.counter("serve/decode_tokens", len(self.active))
         for slot, st in self.active.items():
             self.kv.cursors[slot] += 1
             st["out"].append(int(nxt[slot, 0]))

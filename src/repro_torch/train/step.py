@@ -27,6 +27,14 @@ w owns the contiguous micro-shards [w·S/N, (w+1)·S/N) of the global batch
 kernels at the per-shard batch B/S, and the collectives of
 ``core/chaos.py`` reduce over the workers in a fixed order.  State that
 differs between workers carries a leading ``(N, ...)`` axis.
+
+The overlap harness (DESIGN.md §8) rides the layerwise worker route:
+``sync.interleave`` fires each bucket's exchange from inside the backward
+walk (the model's shard tape), and ``collective_delay_ns_per_byte``
+charges each exchange its bytes × delay through the deadline pair of
+``core/chaos.py``, blocking on the collect schedule and hidden behind the
+rest of the backward on the interleaved one.  A tracer installed when the
+step is built (``obs.trace.set_tracer``) stamps every bucket's exchange.
 """
 from __future__ import annotations
 
@@ -34,12 +42,14 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.chaos import (SyncConfig, gathered_shard_mean,
+from repro_torch.core.chaos import (SyncConfig, delay_gate, delay_start,
+                                    gathered_shard_mean,
                                     replicate_for_workers, worker_slice)
 from repro_torch.core.schedule import make_lr_fn
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.core.types import ArchConfig, WorkerConfig
 from repro_torch.models.api import get_ops
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import Optimizer, adamw, sgd
 from repro_torch.train.sync import (StepContext, get_strategy,
                                     reslot_stacked)
@@ -294,6 +304,16 @@ def make_worker_train_step(cfg: ArchConfig, sync: SyncConfig,
       combine     - ``gathered_shard_mean``: one fixed-shape sum over S
       local_mean  - each worker's mean over its own shards (sum / (S/N))
       local_frac  - each worker's term of the global mean (sum · (1/S))
+
+    ``sync.layerwise`` walks the buckets in reverse-production order, each
+    with its own exchange and update.  ``sync.interleave`` issues each
+    exchange from inside the backward walk (``ops.shard_bucket_grads``),
+    bit for bit the collect schedule's values and launches; it falls back
+    to collect where the family has no shard tape or the optimizer has a
+    whole-tree ``pre_apply`` (adamw's clip), as in the JAX package.
+    ``sync.collective_delay_ns_per_byte`` > 0 charges every gather of
+    N > 1 workers its result bytes × delay: blocking on the collect
+    schedule, from the issue point on the interleaved one.
     """
     ops = get_ops(cfg, device)
     if ops.loss_and_grads is None:
@@ -307,29 +327,34 @@ def make_worker_train_step(cfg: ArchConfig, sync: SyncConfig,
             "logical-shard decomposition IS the micro-batching here "
             "(per-shard batch = B / logical_shards); raise "
             "WorkerConfig.logical_shards instead")
-    if sync.interleave:
-        raise NotImplementedError(
-            "sync.interleave (the layerwise shard tape of the overlap "
-            "harness) is not yet ported to repro_torch")
     if sync.axis_name != worker.axis:
         sync = dataclasses.replace(sync, axis_name=worker.axis)
     strat = get_strategy(sync)
     N, S = worker.workers, worker.logical_shards
     s_local = worker.shards_per_worker
     stacked = strat.stacked_state
+    delay = sync.collective_delay_ns_per_byte
+
+    def shard_batches(batch):
+        """The S micro-shard batches (views) of the global batch."""
+        size = len(next(iter(batch.values())))
+        worker.validate_batch(size)
+        per = size // S
+        return [{k: v[s * per:(s + 1) * per] for k, v in batch.items()}
+                for s in range(S)]
+
+    def shard_params(params):
+        """The param tree each micro-shard runs at: its worker's."""
+        return [worker_slice(params, s // s_local) if stacked else params
+                for s in range(S)]
 
     def shard_grads(params, batch):
         """(losses, metrics, grads), each stacked (S, ...) over the
         micro-shards in global order.  Per-shard shapes do not depend on
         N, so per-shard values are bit-identical for every worker count."""
-        size = len(next(iter(batch.values())))
-        worker.validate_batch(size)
-        per = size // S
         outs = []
-        for s in range(S):
-            p = worker_slice(params, s // s_local) if stacked else params
-            loss, metrics, grads = ops.loss_and_grads(
-                p, {k: v[s * per:(s + 1) * per] for k, v in batch.items()})
+        for p, b in zip(shard_params(params), shard_batches(batch)):
+            loss, metrics, grads = ops.loss_and_grads(p, b)
             outs.append(({**metrics, "loss": loss},
                          tree_map(lambda t: t.float(), grads)))
         packed = tree_map(lambda *xs: torch.stack(xs), *[o[0] for o in outs])
@@ -352,8 +377,10 @@ def make_worker_train_step(cfg: ArchConfig, sync: SyncConfig,
         optimizer=_per_worker(optimizer, N) if stacked else optimizer,
         grad_fn=shard_grads,
         # the (S, ...) stack is already the workers' stacks in worker
-        # order, so it passes as one piece (no split and re-concatenation)
-        combine=lambda t: gathered_shard_mean([t], S),
+        # order, so it passes as one piece (no split and re-concatenation);
+        # the blocking delay injection (the synchronous exchange) lives
+        # here, at the gather
+        combine=lambda t: gathered_shard_mean([t], S, delay, N),
         local_mean=per_worker_sum(lambda x: x / s_local),
         # sum * (1/S), not sum / S: gathered_shard_mean multiplies by the
         # reciprocal, so the hogwild remote term is exactly 0 when every
@@ -361,30 +388,119 @@ def make_worker_train_step(cfg: ArchConfig, sync: SyncConfig,
         local_frac=per_worker_sum(lambda x: x * (1.0 / S)),
         explicit_workers=True)
 
-    if sync.layerwise:
-        spec = ops.bucket_spec()
+    if not sync.layerwise:
+        def step(state, batch):
+            return strat.step(ctx, state, batch)
 
+        return step
+
+    spec = ops.bucket_spec()
+    # a step's exchanges that place their own deadline pairs take the
+    # gather without the blocking charge
+    ctx_free = dataclasses.replace(
+        ctx, combine=lambda t: gathered_shard_mean([t], S))
+    gathers = N > 1 and strat.bucket_exchange_gathers
+    inject = delay > 0 and gathers
+    # per bucket, the gather's result bytes: S × one shard's gradient
+    # bytes (bf16 on the compressed wire)
+    itemsize = 2 if sync.compress else 4
+    abstract = ops.abstract_params()
+    bucket_bytes = {b.name: S * itemsize * sum(
+        x.numel() for x in tree_leaves(b.view(abstract))) for b in spec}
+    bucket_ms = {name: n * delay * 1e-6 for name, n in bucket_bytes.items()}
+    # per-bucket exchange stamps (obs): a tracer installed when the step is
+    # BUILT stamps each exchange's issue and gate, and its pair carries the
+    # injected deadline (never charged twice); none installed, nothing is
+    # enqueued
+    tracer = obs_trace.get_tracer()
+    stamp = tracer is not None and gathers
+
+    def span_args(bucket, schedule):
+        return {"bytes": bucket_bytes[bucket.name], "tau": sync.staleness,
+                "schedule": schedule}
+
+    def issue(bucket, g_b, schedule):
+        """The exchange's deadline token at its issue point, or None."""
+        if stamp:
+            return tracer.bucket_issue(
+                g_b, bucket.name,
+                delay_ms=bucket_ms[bucket.name] if inject else 0.0,
+                workers=N, args=span_args(bucket, schedule))
+        if inject:
+            return delay_start(g_b, bucket_ms[bucket.name])
+        return None
+
+    def wait(bucket, g_ex, token):
+        if stamp:
+            return tracer.bucket_gate(g_ex, token, bucket.name, workers=N)
+        if token is not None:
+            return delay_gate(g_ex, token)
+        return g_ex
+
+    def finish_walk(state, ctx_, new_params, new_opt, finish, grads, losses,
+                    metrics):
+        new_sync = finish(grads)
+        new_params, new_sync = strat.boundary(ctx_, new_params, new_sync,
+                                              state["step"])
+        return strat.finish_step(ctx_, state, new_params, new_opt, new_sync,
+                                 losses, metrics)
+
+    interleave = (sync.interleave and ops.shard_bucket_grads is not None
+                  and optimizer.pre_apply is None)
+    if interleave:
         def bucket_step(state, batch):
-            # collect-then-walk: the stacked gradients first, then each
-            # bucket's own exchange and update in reverse-production order
+            """The interleaved schedule: each bucket's exchange is issued
+            (and its deadline stamped) the moment its stacked gradient
+            exists inside the backward walk; the gates and updates follow
+            the walk in reverse-production order, so each gate sleeps only
+            what the rest of the backward has not hidden.  Every launch
+            and value is the collect schedule's."""
             exchange_bucket, finish = strat.bucket_exchange(
-                ctx, state["sync"], state["step"])
-            losses, metrics, grads = ctx.grad_fn(state["params"], batch)
-            new_params, new_opt = _bucket_walk(
-                spec, ctx.optimizer, exchange_bucket, state["params"],
-                state["opt"], grads, state["step"])
-            new_sync = finish(grads)
-            new_params, new_sync = strat.boundary(ctx, new_params, new_sync,
-                                                  state["step"])
-            return strat.finish_step(ctx, state, new_params, new_opt,
-                                     new_sync, losses, metrics)
+                ctx_free, state["sync"], state["step"])
+            exchanged = {}
+
+            def on_bucket(bucket, g_b):
+                token = issue(bucket, g_b, "interleave")
+                exchanged[bucket.name] = (exchange_bucket(bucket, g_b),
+                                          token)
+
+            losses, metrics, grads = ops.shard_bucket_grads(
+                shard_params(state["params"]), shard_batches(batch),
+                on_bucket)
+            new_params, new_opt = dict(state["params"]), state["opt"]
+            for bucket in reversed(spec):
+                g_ex, token = exchanged[bucket.name]
+                new_p_b, new_opt = _apply_bucket(
+                    ctx.optimizer, bucket, new_params,
+                    wait(bucket, g_ex, token), new_opt, state["step"])
+                new_params.update(new_p_b)
+            return finish_walk(state, ctx_free, new_params, new_opt, finish,
+                               grads, losses, metrics)
 
         return bucket_step
 
-    def step(state, batch):
-        return strat.step(ctx, state, batch)
+    def bucket_step(state, batch):
+        """The collect schedule: the stacked gradients first, then each
+        bucket's own exchange and update in reverse-production order.
+        Traced, each exchange sits inside an issue/gate stamp pair that
+        carries its blocking charge."""
+        exchange_bucket, finish = strat.bucket_exchange(
+            ctx_free if stamp else ctx, state["sync"], state["step"])
+        if stamp:
+            inner = exchange_bucket
 
-    return step
+            def exchange_bucket(bucket, g_b):
+                token = issue(bucket, g_b, "collect")
+                return wait(bucket, inner(bucket, g_b), token)
+
+        losses, metrics, grads = ctx.grad_fn(state["params"], batch)
+        new_params, new_opt = _bucket_walk(
+            spec, ctx.optimizer, exchange_bucket, state["params"],
+            state["opt"], grads, state["step"])
+        return finish_walk(state, ctx, new_params, new_opt, finish, grads,
+                           losses, metrics)
+
+    return bucket_step
 
 
 def init_worker_state(cfg: ArchConfig, generator: torch.Generator,

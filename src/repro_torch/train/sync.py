@@ -28,6 +28,9 @@ Protocol (one strategy instance per ``SyncConfig``):
                             end-of-step parameter hook (localsgd's K-step
                             average and its τ-ring of corrections)
 ``finish_step(...)``        packs the step result into the new state
+``bucket_exchange_gathers`` whether the per-bucket exchange is a
+                            collective over the workers (its delay
+                            injection and stamps hang on it)
 ``bucket_exchange(ctx, sync_state, step) -> (exchange_bucket, finish)``
                             the per-bucket exchange of the layerwise path:
                             ``exchange_bucket(bucket, grads_b)`` is called
@@ -56,10 +59,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.chaos import (SyncConfig, compress_grads, dtype_named,
-                                    localsgd_average, worker_mean,
-                                    zeros_like_f32)
-from repro_torch.core.tree import tree_map
+from repro_torch.core.chaos import (SyncConfig, compress_grads, delay_gate,
+                                    delay_start, dtype_named,
+                                    localsgd_average, tree_bytes,
+                                    worker_mean, zeros_like_f32)
+from repro_torch.core.tree import tree_leaves, tree_map
 
 STRATEGIES: dict = {}
 
@@ -183,6 +187,11 @@ class BspStrategy:
     name = "bsp"
     stacked_state = False     # worker route: state unstacked
     workers_identical = True  # metrics reduce with the same fixed-shape mean
+    #: whether the per-bucket exchange runs a collective over the workers
+    #: (drives the layerwise schedules' per-bucket delay injection and
+    #: stamps: localsgd's per-bucket reduce is local, so it is charged no
+    #: gather latency)
+    bucket_exchange_gathers = True
 
     def __init__(self, sync: SyncConfig):
         self.sync = sync
@@ -329,40 +338,78 @@ class LocalSGDStrategy(BspStrategy):
     name = "localsgd"
     stacked_state = True
     workers_identical = False
+    bucket_exchange_gathers = False  # the per-bucket reduce is local
 
     def _tau(self) -> int:
         return self.sync.staleness
+
+    def _has_tokens(self) -> bool:
+        return (self._tau() >= 1
+                and self.sync.collective_delay_ns_per_byte > 0)
 
     def init_state(self, params) -> dict:
         st = super().init_state(params)
         if self._tau() >= 1:
             st["lsring"] = init_ring(params, self._tau(), self._ring_dtype())
+            if self._has_tokens():
+                # zero deadlines are already past: the first τ boundaries'
+                # reads sleep nothing (the zero corrections they gate)
+                st["lstok"] = torch.zeros(
+                    (self._tau(),), dtype=torch.float32,
+                    device=tree_leaves(params)[0].device)
         return st
 
     def worker_sync_layout(self) -> dict:
         layout = super().worker_sync_layout()
         if self._tau() >= 1:
             layout["lsring"] = "worker"
+            if self._has_tokens():
+                layout["lstok"] = "worker"
         return layout
 
     def _reduce(self, ctx: StepContext, grads):
         return ctx.local_mean(grads)
 
     def boundary(self, ctx: StepContext, params, sync_state, step: int):
+        """With delay injection a deadline token per ring slot rides the
+        sync state (``lstok``, one per worker): the all-reduce's 2 × param
+        bytes charge is stamped at boundary m and slept off when boundary
+        m + τ reads the slot back, after K·τ local steps of compute.  The
+        port's step is a host int, so the gate runs at boundaries only
+        (the JAX package gates on every step, sleeping the last stamp's
+        remainder one step later), and each gate sleeps at most one charge
+        (a token restored from another process counts from that process's
+        epoch).  Values are untouched either way."""
         sync = self.sync
         tau = self._tau()
+        delay = sync.collective_delay_ns_per_byte
         if tau == 0:
-            return localsgd_average(sync, params, step), sync_state
+            return (localsgd_average(sync, params, step,
+                                     delay_ns_per_byte=delay), sync_state)
         if (step + 1) % sync.local_steps != 0:
             return params, sync_state
         m = (step + 1) // sync.local_steps - 1  # 0-based boundary index
         ring = sync_state["lsring"]
         stale = ring_read(ring, m, tau)
+        gated = "lstok" in sync_state and sync.axis_name is not None
+        if gated:
+            # all-reduce effective bytes: 2 × one worker's params
+            n = tree_leaves(params)[0].shape[0]
+            charge_ms = 2.0 * (tree_bytes(params) // n) * delay * 1e-6
+            # the workers' tokens agree unless restored; the emulated
+            # exchange waits for the latest
+            stale = delay_gate(stale,
+                               sync_state["lstok"][:, m % tau].amax(),
+                               cap_ms=charge_ms)
         new_params = tree_map(lambda p, s: p + s.to(p.dtype), params, stale)
         avg = localsgd_average(sync, new_params, step)
         corr = tree_map(lambda a, p: a - p, avg, new_params)
-        return new_params, {**sync_state,
-                            "lsring": ring_write(ring, m, tau, corr)}
+        new_sync = {**sync_state, "lsring": ring_write(ring, m, tau, corr)}
+        if gated:
+            tokens = sync_state["lstok"].clone()
+            tokens[:, m % tau] = delay_start(corr, charge_ms)
+            new_sync["lstok"] = tokens
+        return new_params, new_sync
 
 
 @register

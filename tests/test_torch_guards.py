@@ -160,15 +160,13 @@ def test_serving_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
         serve_trace("qwen3-14b", requests=1)
 
 
-@pytest.mark.parametrize("kw", [{"temperature": 0.7},
-                                {"tracer": object()}, {"bus": object()}],
-                         ids=["temperature", "tracer", "bus"])
+@pytest.mark.parametrize("kw", [{"temperature": 0.7}],
+                         ids=["temperature"])
 def test_unported_serving_options_raise(kw):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ServeEngine("qwen3-14b", device="cpu", **kw)
-    if "temperature" in kw:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            serve("qwen3-14b", device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        serve("qwen3-14b", device="cpu", **kw)
 
 
 def test_flash_kernel_wrapper_raises_on_what_the_kernel_does_not_take(
@@ -213,7 +211,8 @@ def test_build_dir_is_keyed_by_the_sources(monkeypatch, tmp_path):
     (csrc / "pool.cu").write_text((csrc / "pool.cu").read_text() + "\n")
     assert build.build_dir() != before
     assert [p.name for p in build.sources()] == [
-        "conv2d.cu", "conv2d_bwd.cu", "errors.cu", "fc.cu", "fc_bwd.cu",
+        "conv2d.cu", "conv2d_bwd.cu", "deadline.cu", "errors.cu", "fc.cu",
+        "fc_bwd.cu",
         "flash_attention.cu", "flash_attention_bwd.cu", "pool.cu",
         "pool_bwd.cu", "softmax_xent.cu", "wkv6.cu"]
     # headers are not compiled alone, but an edit of one rebuilds too
@@ -353,6 +352,59 @@ def test_chip_smoke_retries_a_trace_without_device_events(monkeypatch):
     with pytest.raises(AssertionError, match="no device events"):
         smoke.traced_kernels(torch, None)
     assert smoke.device_ms(torch, None) == (None, [])
+
+
+POOL_CASE = ("maxpool2d_fwd", "pool3", None, ("maxpool2d_fwd_kernel",
+                                               (4, 2)))
+
+
+@pytest.mark.parametrize("ran, ok", [
+    ("void maxpool2d_fwd_kernel<4, 2>(Args)", True),
+    ("void maxpool2d_fwd_kernel<1, 2>(Args)", False)],
+    ids=["picked", "other-instance"])
+def test_chip_smoke_holds_each_case_to_its_instance(monkeypatch, ran, ok):
+    smoke = _chip_smoke()
+    monkeypatch.setattr(smoke, "traced_kernels", lambda torch, fn: [ran])
+    if ok:
+        smoke.check_instances(torch, [POOL_CASE])
+    else:
+        with pytest.raises(AssertionError, match="expected"):
+            smoke.check_instances(torch, [POOL_CASE])
+
+
+@pytest.mark.parametrize("rc", [0, 1, 4], ids=["held", "failed",
+                                               "no-events-there-either"])
+def test_chip_smoke_makes_traced_checks_in_a_fresh_process(monkeypatch, rc):
+    """When PROFILE_TRIES traces in a row hold no device events, the traced
+    checks run once in a fresh ``--traced-checks`` process: its failure
+    fails the run, and only a profiler that records no device events there
+    either leaves them unmade, named on a result line."""
+    smoke = _chip_smoke()
+    monkeypatch.setattr(smoke, "profile_steps", lambda torch, fn, steps:
+                        None)
+    calls = []
+
+    def run(cmd, **kw):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, rc)
+
+    monkeypatch.setattr(smoke.subprocess, "run", run)
+    with pytest.raises(smoke.NoDeviceEvents):
+        smoke.check_instances(torch, [POOL_CASE], fresh_process=False)
+    assert calls == []
+    if rc == 1:
+        with pytest.raises(AssertionError, match="fresh process"):
+            smoke.check_instances(torch, [POOL_CASE])
+        with pytest.raises(AssertionError, match="fresh process"):
+            smoke.traced_checks_in_child("flash backward")
+    else:
+        smoke.check_instances(torch, [POOL_CASE])
+        smoke.traced_checks_in_child("flash backward")
+    assert len(calls) == 1 and calls[0][1:] == [
+        str(ROOT / "chip_smoke.py"), "--traced-checks"]
+    assert smoke.UNTRACED == (["phase 2's pool and softmax-xent instance "
+                               "checks", "flash backward"]
+                              if rc == smoke.NO_EVENTS_RC else [])
 
 
 def test_chip_smoke_times_the_pool_forward_without_the_eviction(
@@ -590,6 +642,13 @@ def test_chip_smoke_kernels_run_fails_without_a_card(tmp_path, alone):
     proc = _run_without_a_card(tmp_path, alone, "--kernels")
     assert proc.returncode != 0
     assert "== 1" not in proc.stdout
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_traced_checks_fail_without_a_card(tmp_path, alone):
+    proc = _run_without_a_card(tmp_path, alone, "--traced-checks")
+    assert proc.returncode != 0
+    assert "instance" not in proc.stdout
 
 
 def test_chip_smoke_refuses_unknown_arguments(capsys):

@@ -10,8 +10,8 @@ within the parameter tolerances, both read back through the reference's
 manager.  Inside the port: resume equals replay bit for bit (the dying run
 through the CLI), the CI's preemption-injection smoke with its flags
 (``.github/workflows/ci.yml``) and the rest of the elastic ladder, the
-``--metrics-out`` document, and the options that are not yet ported
-raising."""
+``--metrics-out`` document, and the families whose training is not yet
+ported raising."""
 import json
 import os
 import shutil
@@ -320,21 +320,6 @@ def test_prefetch_feed_reraises_and_stops():
     assert next(iter(feed))[0] == 0
     feed.stop()  # the producer is blocked on the full queue
     assert not feed._thread.is_alive()
-
-
-@pytest.mark.parametrize("kw", [dict(trace_out="t.json"),
-                                dict(collective_delay=0.5),
-                                dict(interleave=True)],
-                         ids=["trace-out", "collective-delay", "interleave"])
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="not yet ported.*A9"):
-        TR.train("chaos-small", 2, device="cpu", **kw)
-    flag = {"trace_out": ["--trace-out", "t.json"],
-            "collective_delay": ["--collective-delay", "0.5"],
-            "interleave": ["--interleave"]}[next(iter(kw))]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TR.main(["--arch", "chaos-small", "--steps", "2", "--device", "cpu"]
-                + flag)
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "minicpm-2b"])

@@ -209,7 +209,7 @@ def test_sync_config_checks():
         chaos.SyncConfig("chaos", staleness=-1)
     with pytest.raises(ValueError, match="dtype"):
         chaos.SyncConfig("chaos", ring_dtype="float99")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        chaos.SyncConfig("bsp", collective_delay_ns_per_byte=1.0)
+    with pytest.raises(ValueError, match="collective_delay"):
+        chaos.SyncConfig("bsp", collective_delay_ns_per_byte=-1.0)
     assert ({f.name for f in dataclasses.fields(ref_chaos.SyncConfig)}
             == {f.name for f in dataclasses.fields(chaos.SyncConfig)})

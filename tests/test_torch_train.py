@@ -241,20 +241,11 @@ def test_step_builders_have_no_mode_branches():
 
 
 def test_worker_route_refuses_what_it_does_not_carry():
-    """The worker route runs (tests/test_torch_workers*.py); what it does
-    not yet carry raises: the overlap harness's latency injection, its
-    interleaved shard tape, and micro-batches (the reference raises on
-    those too)."""
+    """The worker route runs (tests/test_torch_workers*.py, the overlap
+    harness in tests/test_torch_overlap.py); micro-batches raise, as in
+    the reference."""
     cfg, opt, _ = _setup(SyncConfig("bsp"))
     worker = WorkerConfig(workers=2)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        SyncConfig("chaos", collective_delay_ns_per_byte=0.5)
-    for sync in (SyncConfig("bsp", layerwise=True, interleave=True),
-                 SyncConfig("chaos", interleave=True)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            TS.make_worker_train_step(cfg, sync, worker, opt, device="cpu")
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            TS.make_worker_superstep(cfg, sync, worker, opt, device="cpu")
     micro = dataclasses.replace(cfg, micro_batches=2)
     with pytest.raises(NotImplementedError, match="micro_batches"):
         TS.make_worker_train_step(micro, SyncConfig("bsp"), worker, opt,
