@@ -137,13 +137,14 @@ a profiler that records no device events is no failure of the port, see
    views the model passes) and at edge shapes (D=16, G=1, Tq no tile
    multiple, q_offset > 0, f32 inputs, f32 q over a bf16 cache, not
    causal, LSE; for the bf16 tensor-core instances also D=32 and D=64
-   causal, Tq < 16, Tk no multiple of 64 with q_offset > 0, and scores
+   causal, zamba2-1.2b's training shape with LSE (B=1, T=4096, Hq=Hkv=32,
+   D=64, causal), Tq < 16, Tk no multiple of 64 with q_offset > 0, and scores
    scaled ×8 at D=16 and ×2 at D=128 so that p spans many decades).  At
    D=128 a scale of ×4 or more moves outputs beyond the limit whenever the
    score sums are taken in another order than the plain version's, exact
    sums included (tests/test_torch_flash_fwd_split.py); those two scales
    are printed against the plain version and against the f64 attention,
-   not held.
+   not held.  Each call launches the kernel once (its wrapper's count).
 7. Serving: qwen3-14b at full width and full depth (``CONFIG``, weights
    from ``torch.Generator("cuda").manual_seed(0)``) through
    ``launch/serve.py``: the static batch ``serve(batch=4, prompt_len=1024,
@@ -167,9 +168,11 @@ a profiler that records no device events is no failure of the port, see
    weights are then freed.
 10. Flash backward parity: the backward kernel against its plain version
     on the card at qwen3-14b's training shape (B=2, T=2048, Hq 40 over Hkv
-    8, D=128, bf16, causal) and at edge shapes (D=16, 32, 64 and 128, G=1,
+    8, D=128, bf16, causal), at zamba2-1.2b's (B=1, T=4096, Hq=Hkv=32,
+    D=64, bf16, causal) and at edge shapes (D=16, 32, 64 and 128, G=1,
     2, 3, 5 and 8, T no tile multiple, f32, not causal; bf16 runs on the
-    tensor cores, f32 on the CUDA cores).
+    tensor cores, f32 on the CUDA cores); each call launches the kernel
+    once.
 11. LM training: qwen3-14b at full width cut to 4 layers (weights from
     ``torch.Generator("cuda").manual_seed(0)``, remat on, AdamW with f32
     moments) on ``TokenPipeline(vocab_size=151936, batch=2, seq_len=2048,
@@ -188,6 +191,24 @@ a profiler that records no device events is no failure of the port, see
     one batch of 1 x 256: the loss and each bucket's gradient norm of the
     kernel route on the card against the plain route on the card and
     against the default route on the CPU.
+13b. The Zamba2 hybrid: zamba2-1.2b at full width and depth (38 layers,
+    1,170,138,240 bf16 params from ``torch.Generator("cuda")
+    .manual_seed(0)``, AdamW with f32 moments) on ``TokenPipeline(
+    vocab_size=32000, batch=2, seq_len=4096, seed=0)`` through
+    ``init_train_state`` and ``make_train_step``, as the config's 2
+    micro-batches of 1 x 4096 with the group remat: 3 bsp steps twice
+    (bit-identical), counts from 0 around each step (exactly 24
+    ``flash_attention_fwd`` and 12 ``flash_attention_bwd`` launches), first
+    loss near ln V, the step ms by CUDA events, tokens/s, peak memory, and
+    the device busy share and ms by kernel group from one step's
+    torch.profiler trace (device activity only); then one group (6 mamba
+    blocks and the shared block) at full width, 1 x 256: the routes and
+    card against CPU check of phase 13 with f32 weights at its limits and
+    on the bf16 model (the CPU's gradient norms printed, not held; see
+    HYBRID_CHECK); token-by-token decode against the forward at 2 groups,
+    B=2, T=64, held at 0.15 / 0.15 with f32 weights and printed for bf16;
+    the full-depth 4-row decode step against its weight-and-state read
+    bound.
 14. WKV parity: the WKV kernel against its plain version on the card at
     the rwkv6-1.6b scoring shape (B=4, T=2048, H=32, D=64; bf16 r/k/v/u,
     f32 w through the model's decay parameterisation, f32 out) and at edge
@@ -383,6 +404,41 @@ LM_FIRST_LOSS_SLACK = 2.0
 #: on an H100 80GB HBM3 at 700 W).
 LM_LOSS_REL = 1e-3
 LM_NORM_REL = 2e-3
+#: Phase 13b, the Zamba2 hybrid: zamba2-1.2b at full width and depth,
+#: trained on HYBRID_DATA (the reference's train_4k sequence length) as the
+#: config's 2 micro-batches of 1 x 4096 for HYBRID_STEPS bsp steps, twice.
+HYBRID = "zamba2-1.2b"
+HYBRID_PARAMS = 1_170_138_240
+HYBRID_DATA = dict(batch=2, seq_len=4096, seed=0)
+HYBRID_STEPS = 3
+#: Flash launches of one step: the shared attention runs at 6 sites
+#: (layers 5, 11, ..., 35), all inside the 6 checkpointed groups of 6
+#: mamba blocks and the shared block (layers 36-37 are tail layers without
+#: one); each micro-batch runs the forward kernel at each site in the
+#: forward and again in its group's recompute, and the backward kernel
+#: once.
+HYBRID_PER_STEP = {"flash_attention_fwd": 24, "flash_attention_bwd": 12}
+#: Routes and card against CPU: one group (6 mamba blocks and the shared
+#: block) at full width, one batch of 1 x 256, at PR 16's limits
+#: (LM_LOSS_REL, LM_NORM_REL) with f32 weights, and the bf16 model's two
+#: routes on the card.  The bf16 model's bucket gradient norms on the CPU
+#: are printed, not held: they move by 1.2 % between two CPU thread counts
+#: alone (8 against 1, ``python -m tests.mamba2_rounding --full``; the
+#: SSD's decay carries each rounding change on), and the card's and the
+#: CPU's lie percents from an f32 copy of the same weights, which the phase
+#: prints; its loss is held.
+HYBRID_CHECK = dict(layers=6, batch=1, seq_len=256)
+#: Token-by-token decode against the teacher-forced forward at 2 groups
+#: (12 layers), B=2, T=64, held at the reference's own bound
+#: (tests/test_numerics.py) with f32 weights.  The bf16 model
+#: is printed, not held: the reference's own bf16 decode lies 8.6 times the
+#: bound from its forward at this cut on the CPU (``python -m
+#: tests.mamba2_rounding --full``).
+HYBRID_DECODE = dict(layers=12, batch=2, seq_len=64)
+HYBRID_DECODE_TOL = 0.15
+#: The full-depth decode step timed against its weight-and-state read bound.
+HYBRID_DECODE_ROWS = 4
+HYBRID_DECODE_TIMED = 10
 #: RWKV-6 at full width and depth: the scoring cell (one batch of the data
 #: pipeline through the loss, no gradient) and the two serving cells
 #: through ``launch/serve.py``; the card-vs-CPU check's depth and batch.
@@ -2319,30 +2375,32 @@ def step_times(torch, cfg, images, labels, batch):
 
 def profile_steps(torch, one, steps: int = 10):
     """Device activity over ``steps`` calls of ``one`` in a torch.profiler
-    trace: (busy share of the span from the first kernel's start to the
-    last one's end, device ms per step by kernel name, largest first,
-    device kernels per step, launches per step by kernel name), or None
-    when the trace holds no device events."""
+    trace of the device activity alone, read from the profiler's raw
+    events, not its event tree (a step of 10^5 launches then takes seconds
+    to read, not a minute): (busy share of the span from the first
+    kernel's start to the last one's end, device ms per step by kernel
+    name, largest first, device kernels per step, launches per step by
+    kernel name), or None when the trace holds no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             one()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [(e.name(), e.start_ns() / 1e3, e.duration_ns() / 1e3)
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]  # (name, start, us)
     if not kernels:
         return None
-    start = min(e.time_range.start for e in kernels)
-    end = max(e.time_range.end for e in kernels)
-    busy = sum(e.time_range.elapsed_us() for e in kernels)
+    start = min(t for _, t, _ in kernels)
+    end = max(t + us for _, t, us in kernels)
+    busy = sum(us for _, _, us in kernels)
     by_name, counts = {}, {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + \
-            e.time_range.elapsed_us() / steps / 1e3
-        counts[e.name] = counts.get(e.name, 0) + 1 / steps
+    for name, _, us in kernels:
+        by_name[name] = by_name.get(name, 0.0) + us / steps / 1e3
+        counts[name] = counts.get(name, 0) + 1 / steps
     return (busy / (end - start),
             sorted(by_name.items(), key=lambda kv: -kv[1]),
             len(kernels) / steps, counts)
@@ -2557,6 +2615,8 @@ def flash_inputs(torch, g, A, Hq, Hkv, T, Tk, D, qdt, kvdt):
 
 def check_flash_parity(torch, FA) -> float:
     g = torch.Generator(device="cuda").manual_seed(4321)
+    # The rows draw their inputs from g in order: a new row goes at the end,
+    # so that every row before it keeps the inputs it was held on.
     bf, f32 = torch.bfloat16, torch.float32
     worst = 0.0
     for (label, A, Hq, Hkv, T, Tk, D, off, causal, qdt, kvdt, lse,
@@ -2586,13 +2646,20 @@ def check_flash_parity(torch, FA) -> float:
             ("scores x8, D=16, G=5, T=1000", 1, 10, 2, 1000, 1000, 16, 0,
              True, bf, bf, True, 8),
             ("scores x2, D=128, G=5, T=1000", 1, 10, 2, 1000, 1000, 128, 0,
-             True, bf, bf, True, 2)]:
+             True, bf, bf, True, 2),
+            ("zamba2-1.2b training, LSE", 1, 32, 32, 4096, 4096, 64, 0, True,
+             bf, bf, True, 1)]:
         q, k, v = flash_inputs(torch, g, A, Hq, Hkv, T, Tk, D, qdt, kvdt)
         kw = dict(causal=causal, q_offset=off, return_lse=lse,
                   softmax_scale=mult / math.sqrt(D))
+        launches = FA.flash_attention_fwd.launches
         got = FA.flash_attention_fwd(q, k, v, **kw)
+        launches = FA.flash_attention_fwd.launches - launches
         want = FA.flash_attention_fwd_plain(q, k, v, **kw)
         torch.cuda.synchronize()
+        if launches != 1:
+            raise AssertionError(f"flash {label}: {launches} launches, "
+                                 f"expected 1")
         (o, l), (wo, wl) = (got, want) if lse else ((got, None), (want, None))
         shape = f"q{tuple(q.shape)} kv{tuple(k.shape)} {str(qdt)[6:]}/" \
                 f"{str(kvdt)[6:]} q_offset={off} causal={causal}"
@@ -2624,8 +2691,8 @@ def check_flash_parity(torch, FA) -> float:
         worst = max(worst, diff.max().item())
         print(f"parity flash_attention_fwd {label} {shape}: max_abs_err="
               f"{diff.max().item():.3e} (within {tol})"
-              + (f", LSE max_abs_err={lse_err:.3e}" if lse else ""),
-              flush=True)
+              + (f", LSE max_abs_err={lse_err:.3e}" if lse else "")
+              + ", 1 launch", flush=True)
     return worst
 
 
@@ -3038,6 +3105,8 @@ def flash_bwd_inputs(torch, FA, g, B, T, Hq, Hkv, D, dtype, causal):
 
 def check_flash_bwd_parity(torch, FA) -> float:
     g = torch.Generator(device="cuda").manual_seed(2468)
+    # The rows draw their inputs from g in order: a new row goes at the end,
+    # so that every row before it keeps the inputs it was held on.
     bf, f32 = torch.bfloat16, torch.float32
     worst = 0.0
     for (label, B, T, Hq, Hkv, D, dtype, causal) in [
@@ -3052,11 +3121,17 @@ def check_flash_bwd_parity(torch, FA) -> float:
             ("D=128, G=5, T=330", 1, 330, 10, 2, 128, bf, True),
             ("D=128, G=8, T=1000", 1, 1000, 16, 2, 128, bf, True),
             ("D=128, G=1, T=520, not causal", 2, 520, 4, 4, 128, bf,
-             False)]:
+             False),
+            ("zamba2-1.2b training", 1, 4096, 32, 32, 64, bf, True)]:
         args = flash_bwd_inputs(torch, FA, g, B, T, Hq, Hkv, D, dtype, causal)
+        launches = FA.flash_attention_bwd.launches
         got = FA.flash_attention_bwd(*args, causal=causal)
+        launches = FA.flash_attention_bwd.launches - launches
         want = FA.flash_attention_bwd_plain(*args, causal=causal)
         torch.cuda.synchronize()
+        if launches != 1:
+            raise AssertionError(f"flash bwd {label}: {launches} launches, "
+                                 f"expected 1")
         shape = (f"q{(B, T, Hq, D)} kv{(B, T, Hkv, D)} {str(dtype)[6:]} "
                  f"causal={causal}")
         errs = []
@@ -3088,7 +3163,7 @@ def check_flash_bwd_parity(torch, FA) -> float:
                         f"{top:.3e} ({tol})")
             worst = max(worst, diff.max().item())
         print(f"parity flash_attention_bwd {label} {shape}: max_abs_err "
-              + "; ".join(errs), flush=True)
+              + "; ".join(errs) + "; 1 launch", flush=True)
     return worst
 
 
@@ -3111,11 +3186,12 @@ def lm_per_step(cfg) -> dict:
 
 
 def lm_train_run(torch, kops, launch_trace, cfg, sync, batches,
-                 superstep=False):
+                 superstep=False, per_step=None):
     """Train from a fresh state (``torch.Generator("cuda").manual_seed(0)``)
     over ``batches``, one step per batch or one superstep over all; counts
-    from 0 just before, checked just after.  Returns (state, losses,
-    counts, step ms by CUDA events)."""
+    from 0 just before, checked just after against ``per_step`` (the dense
+    LM's ``lm_per_step`` by default).  Returns (state, losses, counts, step
+    ms by CUDA events)."""
     from repro_torch.train.step import (init_train_state, make_superstep,
                                         make_train_step)
 
@@ -3149,7 +3225,7 @@ def lm_train_run(torch, kops, launch_trace, cfg, sync, batches,
         losses = torch.stack(losses).tolist()
     torch.cuda.synchronize()
     counts = kops.launch_counts()
-    per_step = lm_per_step(cfg)
+    per_step = per_step or lm_per_step(cfg)
     want = {k: per_step.get(k, 0) * len(batches) for k in counts}
     if counts != want:
         raise AssertionError(f"{cfg.name} {sync}: launches {counts}, "
@@ -3435,41 +3511,270 @@ def bucket_norms(torch, spec, grads):
             for b in spec}
 
 
-def check_lm_routes(torch):
+def route_inputs(torch, cfg, check):
+    """The card's ops, weights drawn on the card and one batch of
+    ``check``'s shape for the route checks of ``cfg``."""
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.models.api import get_ops
 
-    cfg = lm_cfg(LM_CHECK["layers"])
-    ops, cpu = get_ops(cfg), get_ops(cfg, device="cpu")
+    ops = get_ops(cfg)
     params = ops.init(torch.Generator(device="cuda").manual_seed(0))
-    batch = TokenPipeline(cfg.vocab_size, LM_CHECK["batch"],
-                          LM_CHECK["seq_len"], seed=1).batch_at(0)
+    batch = TokenPipeline(cfg.vocab_size, check["batch"],
+                          check["seq_len"], seed=1).batch_at(0)
+    return ops, params, batch
+
+
+def check_routes(torch, cfg, check, hold_cpu_norms: bool = True) -> dict:
+    """The loss and each bucket's gradient norm of ``cfg`` on one batch of
+    ``check``'s shape: the kernel route on the card against the plain
+    route on the card (LM_LOSS_REL, LM_NORM_REL) and the default route on
+    the CPU (LM_LOSS_REL, and LM_NORM_REL where ``hold_cpu_norms``, else
+    the norms' gap printed), on the same weights (drawn on the card).
+    Returns each run's (loss, bucket norms) by label."""
+    from repro_torch.models.api import get_ops
+
+    ops, params, batch = route_inputs(torch, cfg, check)
     spec = ops.bucket_spec()
     runs = {}
     for label, o, p, kw in [
             ("card, kernel route", ops, params, dict(use_kernel=True)),
             ("card, plain route", ops, params, dict(use_kernel=False)),
-            ("CPU, default route", cpu, None, {})]:
+            ("CPU, default route", get_ops(cfg, device="cpu"), None, {})]:
         t0 = time.perf_counter()
         if p is None:
             p = tree_map(lambda t: t.cpu(), params)
         loss, _, grads = o.loss_and_grads(p, batch, **kw)
         runs[label] = (loss.item(), bucket_norms(torch, spec, grads))
-        print(f"{cfg.name}, batch {LM_CHECK['batch']} x "
-              f"{LM_CHECK['seq_len']}, {label}: loss {runs[label][0]:.6f}, "
+        print(f"{cfg.name}, batch {check['batch']} x "
+              f"{check['seq_len']}, {label}: loss {runs[label][0]:.6f}, "
               f"bucket gradient norms {runs[label][1]}, "
               f"{time.perf_counter() - t0:.3f} s", flush=True)
         del grads
     ref_loss, ref_norms = runs["card, kernel route"]
-    for label in ("card, plain route", "CPU, default route"):
+    for label, hold in (("card, plain route", True),
+                        ("CPU, default route", hold_cpu_norms)):
         loss, norms = runs[label]
         dl = abs(loss - ref_loss) / abs(loss)
         dn = max(abs(norms[k] - ref_norms[k]) / norms[k] for k in norms)
         print(f"card kernel route vs {label}: loss differs by {dl:.3e} of "
               f"its size (limit {LM_LOSS_REL}), bucket gradient norms by up "
-              f"to {dn:.3e} (limit {LM_NORM_REL})", flush=True)
-        if dl > LM_LOSS_REL or dn > LM_NORM_REL:
+              f"to {dn:.3e} (limit {LM_NORM_REL if hold else 'none, printed'})",
+              flush=True)
+        if dl > LM_LOSS_REL or (hold and dn > LM_NORM_REL):
             raise AssertionError(f"card kernel route and {label} differ")
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# Phase 13b: the Zamba2 hybrid
+# ---------------------------------------------------------------------------
+def hybrid_cfg(**kw):
+    from repro_torch.configs import get
+
+    cfg = get(HYBRID)
+    if "n_layers" in kw:
+        kw.setdefault("name", f"{HYBRID}-{kw['n_layers']}-layers")
+    return dataclasses.replace(cfg, **kw)
+
+
+def hybrid_groups(by_name) -> dict:
+    """Device ms by kernel group: the flash kernels, f32 GEMMs (the SSD's
+    einsums), bf16 GEMMs (the projections and the head), the rest."""
+    groups = {}
+    for name, v in by_name:
+        low = name.lower()
+        key = ("flash_bwd" if "flash_bwd_" in name else
+               "flash_fwd" if "flash_fwd" in name else
+               "GEMM f32 (SSD einsums)" if any(w in low for w in (
+                   "sgemm", "f32f32")) else
+               "GEMM bf16" if any(w in low for w in (
+                   "nvjet", "gemm", "cutlass", "sm90_", "xmma")) else
+               "other (elementwise, scans, reductions, copies)")
+        groups[key] = groups.get(key, 0.0) + v
+    return groups
+
+
+def hybrid_f32_copy(torch, cfg, runs) -> None:
+    """Prints the bucket gradient norms of an f32 copy of the bf16 route
+    check's weights on the card, and the bf16 runs' norms (``runs``, from
+    check_routes) relative to them."""
+    from repro_torch.models.api import get_ops
+
+    _, params, batch = route_inputs(torch, cfg, HYBRID_CHECK)
+    f32 = dataclasses.replace(cfg, param_dtype="float32")
+    ops = get_ops(f32)
+    loss, _, grads = ops.loss_and_grads(tree_map(lambda t: t.float(),
+                                                 params), batch)
+    norms = bucket_norms(torch, ops.bucket_spec(), grads)
+    del grads
+    print(f"{cfg.name}, batch {HYBRID_CHECK['batch']} x "
+          f"{HYBRID_CHECK['seq_len']}, card, f32 copy of the weights: loss "
+          f"{loss.item():.6f}, bucket gradient norms {norms}; norms relative "
+          f"to it: " + "; ".join(f"{label} " + ", ".join(
+              f"{k} {runs[label][1][k] / norms[k] - 1:+.3e}" for k in norms)
+              for label in ("card, kernel route", "CPU, default route")),
+          flush=True)
+
+
+def check_hybrid_training(torch, kops, launch_trace) -> dict:
+    """Phase 13b's training cell; returns the trained params and the step's
+    numbers."""
+    from repro_torch.core.chaos import SyncConfig
+    from repro_torch.train.step import make_train_step
+
+    cfg = hybrid_cfg()
+    batches = lm_batches(torch, cfg, HYBRID_STEPS, **HYBRID_DATA)
+    tokens = HYBRID_DATA["batch"] * HYBRID_DATA["seq_len"]
+    bsp = SyncConfig("bsp")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, losses, counts, ms = lm_train_run(
+        torch, kops, launch_trace, cfg, bsp, batches, per_step=HYBRID_PER_STEP)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    print(f"train {cfg.name}: {n_params} params (bf16), AdamW f32 moments, "
+          f"{cfg.n_layers} layers in groups of {cfg.attn_every} (remat "
+          f"{cfg.remat}), {cfg.micro_batches} micro-batches; "
+          f"{HYBRID_STEPS} bsp steps of {HYBRID_DATA['batch']} x "
+          f"{HYBRID_DATA['seq_len']} tokens in {seconds:.3f} s, losses "
+          f"{losses}, launches {counts}; peak device memory "
+          f"{peak / 1e9:.3f} GB", flush=True)
+    if n_params != HYBRID_PARAMS:
+        raise AssertionError(f"{cfg.name}: {n_params} params, expected "
+                             f"{HYBRID_PARAMS}")
+    ln_v = math.log(cfg.vocab_size)
+    if abs(losses[0] - ln_v) > LM_FIRST_LOSS_SLACK:
+        raise AssertionError(f"first loss {losses[0]} is not near ln V = "
+                             f"{ln_v:.4f} (slack {LM_FIRST_LOSS_SLACK})")
+    params_a = state["params"]
+    del state
+    state, again, _, ms_b = lm_train_run(
+        torch, kops, launch_trace, cfg, bsp, batches, per_step=HYBRID_PER_STEP)
+    if not (again == losses and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(params_a),
+                                              tree_leaves(state["params"])))):
+        raise AssertionError(f"two bsp runs differ: losses {losses} vs "
+                             f"{again}")
+    del params_a
+    step_ms = statistics.median(ms[1:] + ms_b[1:])
+    print(f"train {cfg.name}: two bsp runs bit-identical; step "
+          f"{step_ms:.3f} ms (CUDA events, median of steps 2-{HYBRID_STEPS} "
+          f"of both runs; all steps {ms + ms_b}), "
+          f"{tokens / step_ms * 1e3:.1f} tokens/s; first loss "
+          f"{losses[0]:.6f} against ln V = {ln_v:.6f}", flush=True)
+
+    step = make_train_step(cfg, bsp)
+    box = [state]
+    del state
+
+    def one():
+        box[0], _ = step(box[0], batches[0])
+
+    busy = None
+    t0 = time.perf_counter()
+    for _ in range(PROFILE_TRIES):
+        prof = profile_steps(torch, one, steps=1)
+        if prof is not None:
+            break
+    if prof is None:
+        print(f"{cfg.name} training step trace: device busy share and ms by "
+              f"kernel not measured (torch.profiler recorded no device "
+              f"events in {PROFILE_TRIES} traces)", flush=True)
+    else:
+        busy, by_name, n_kernels, _ = prof
+        groups = hybrid_groups(by_name)
+        print(f"{cfg.name} training step trace (torch.profiler, device "
+              f"activity only, one step, {time.perf_counter() - t0:.1f} s): "
+              f"device busy {100 * busy:.2f} % of the traced span, "
+              f"{n_kernels:.0f} device kernels per step; device ms per step "
+              f"by group: " + "; ".join(
+                  f"{k} {v:.6f}" for k, v in sorted(
+                      groups.items(), key=lambda kv: -kv[1]))
+              + "; by kernel: "
+              + "; ".join(f"{name[:70]} {v:.6f}"
+                          for name, v in by_name[:16]), flush=True)
+    return dict(params=box.pop()["params"], step_ms=step_ms, tokens=tokens,
+                peak=peak, busy=busy, counts=counts)
+
+
+def hybrid_decode_gap(torch, cfg) -> float:
+    """Token-by-token decode of HYBRID_DECODE's batch against the
+    teacher-forced forward, weights from a CUDA generator: the largest
+    |decode - forward| over HYBRID_DECODE_TOL · (1 + |forward|)."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.api import get_ops
+
+    B, T = HYBRID_DECODE["batch"], HYBRID_DECODE["seq_len"]
+    ops = get_ops(cfg)
+    params = ops.init(torch.Generator(device="cuda").manual_seed(0))
+    tokens = TokenPipeline(cfg.vocab_size, B, T, seed=3).batch_at(0)[
+        "tokens"]
+    with torch.no_grad():
+        full, _ = ops.forward(params, tokens)
+        cache = ops.init_cache(B, T)
+        dec = []
+        for t in range(T):
+            logits, cache = ops.decode(params, cache, tokens[:, t:t + 1], t)
+            dec.append(logits[:, 0])
+    V = cfg.vocab_size
+    full = full[..., :V].float()
+    diff = (torch.stack(dec, 1)[..., :V].float() - full).abs()
+    return float((diff / (HYBRID_DECODE_TOL * (1 + full.abs()))).max())
+
+
+def check_hybrid_decode(torch, params) -> float:
+    """Decode against the forward at 2 groups (f32 held, bf16 printed);
+    then the full-depth decode step on ``params`` against its bound.
+    Returns the step's ms."""
+    from repro_torch.models.api import get_ops
+
+    for dtype in ("float32", "bfloat16"):
+        cfg = hybrid_cfg(n_layers=HYBRID_DECODE["layers"], param_dtype=dtype)
+        gap = hybrid_decode_gap(torch, cfg)
+        held = dtype == "float32"
+        print(f"{cfg.name} {dtype}: decode of {HYBRID_DECODE['batch']} x "
+              f"{HYBRID_DECODE['seq_len']} tokens against the forward: the "
+              f"largest |diff| is {gap:.4f} of atol {HYBRID_DECODE_TOL} + "
+              f"rtol {HYBRID_DECODE_TOL} ({'held' if held else 'printed, not held'})",
+              flush=True)
+        if held and gap > 1:
+            raise AssertionError(f"{cfg.name}: decode and forward differ")
+        torch.cuda.empty_cache()
+
+    cfg = hybrid_cfg()
+    ops = get_ops(cfg)
+    A, steps = HYBRID_DECODE_ROWS, HYBRID_DECODE_TIMED
+    cache = ops.init_cache(A, steps + 3)
+    tok = torch.zeros((A, 1), dtype=torch.long, device="cuda")
+    ms = []
+    with torch.no_grad():
+        for t in range(steps + 3):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            logits, cache = ops.decode(params, cache, tok, t)
+            ev[1].record()
+            tok = logits[:, :, :cfg.vocab_size].argmax(-1)
+            ms.append(ev)
+        torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in ms[3:]]
+    step_ms = statistics.median(ms)
+    weights = sum(leaf.numel() * leaf.element_size()
+                  for key, tree in params.items() if key != "embed"
+                  for leaf in tree_leaves(tree))
+    states = sum(2 * leaf.numel() * leaf.element_size()
+                 for leaf in (cache["ssm"], cache["conv"]))
+    nbytes = weights + states
+    bound = nbytes / PEAK_BYTES * 1e3
+    print(f"{cfg.name} decode step, {A} rows at full depth: median "
+          f"{step_ms:.3f} ms of {steps} (CUDA events; {ms}) against its "
+          f"{bound:.4f} ms bound ({nbytes / 1e9:.4f} GB at 3.35 TB/s: every "
+          f"weight but the embedding table read once, the SSM state (f32 "
+          f"after the first step) and the conv state read and written; the "
+          f"embedding rows, the KV reads and the logits, under 2 MB, left "
+          f"out), {A / step_ms * 1e3:.1f} tokens/s", flush=True)
+    return step_ms
 
 
 # ---------------------------------------------------------------------------
@@ -4700,7 +5005,27 @@ def main(argv=None) -> int:
 
     phase(f"13 routes and card against CPU: {QWEN} at full width, "
           f"{LM_CHECK['layers']} layers")
-    check_lm_routes(torch)
+    check_routes(torch, lm_cfg(LM_CHECK["layers"]), LM_CHECK)
+    torch.cuda.empty_cache()
+
+    phase(f"13b hybrid: {HYBRID} trained at full width and depth on cuda, "
+          f"its routes, its decode")
+    t0 = time.perf_counter()
+    hybrid = check_hybrid_training(torch, kops, launch_trace)
+    check_routes(torch, hybrid_cfg(n_layers=HYBRID_CHECK["layers"],
+                                   param_dtype="float32"), HYBRID_CHECK)
+    cfg = hybrid_cfg(n_layers=HYBRID_CHECK["layers"])
+    hybrid_f32_copy(torch, cfg, check_routes(torch, cfg, HYBRID_CHECK,
+                                             hold_cpu_norms=False))
+    decode_ms = check_hybrid_decode(torch, hybrid.pop("params"))
+    busy = ("not measured" if hybrid["busy"] is None
+            else f"{100 * hybrid['busy']:.2f} %")
+    print(f"phase 13b took {time.perf_counter() - t0:.1f} s: {HYBRID} "
+          f"training step {hybrid['step_ms']:.3f} ms, "
+          f"{hybrid['tokens'] / hybrid['step_ms'] * 1e3:.1f} tokens/s, peak "
+          f"{hybrid['peak'] / 1e9:.3f} GB, device busy {busy}, launches "
+          f"{hybrid['counts']}; decode step ({HYBRID_DECODE_ROWS} rows) "
+          f"{decode_ms:.3f} ms; {card_line()}", flush=True)
     torch.cuda.empty_cache()
 
     wkv_err, wkv_counts, wkv_row = rwkv_phases(torch, kops)

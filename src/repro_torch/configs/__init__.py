@@ -2,8 +2,8 @@
 
 Each ported architecture lives in its own module exposing ``CONFIG`` and
 ``smoke_config()``, as in ``repro.configs``.  The paper's three
-Table-2 CNNs, the dense qwen3-14b and lm-bench nets and the ssm
-rwkv6-1.6b are ported so far; every other name raises.  Names map to
+Table-2 CNNs, the dense qwen3-14b and lm-bench nets, the ssm rwkv6-1.6b
+and the hybrid zamba2-1.2b are ported so far; every other name raises.  Names map to
 modules as in the reference: ``-`` to ``_`` and ``.`` to ``p``
 (``rwkv6-1.6b`` -> ``rwkv6_1p6b``).
 """
@@ -20,6 +20,7 @@ _ARCH_MODULES = [
     "qwen3_14b",
     "lm_bench",
     "rwkv6_1p6b",
+    "zamba2_1p2b",
 ]
 
 

@@ -1,5 +1,5 @@
 """Model API of the port (counterpart of ``repro.models.api``; the cnn,
-dense and ssm families).
+dense, ssm and hybrid families).
 
     ops = get_ops(cfg)                       # device="cuda" by default
     params = ops.init(torch.Generator().manual_seed(0))
@@ -28,6 +28,12 @@ state and the token-shift carries), ``decode`` and ``prefill`` (which
 takes ``chunked=True`` for the parallel form), and no ``loss_and_grads``
 yet.
 
+The Zamba2 hybrid has ``loss`` and ``loss_and_grads`` (the flash kernel
+route for its shared attention unless ``use_kernel=False``), ``forward``,
+``init_cache`` (bf16; its ``ssm`` state comes back f32 from the first
+``decode`` on, as in the reference) and ``decode`` at an int offset, and
+no ``prefill``, as in the reference.
+
 ``shard_bucket_grads`` (the cnn and dense families) is the worker
 route's interleaved tape: the backward over a list of micro-shards,
 firing ``on_bucket(bucket, grads_b)`` with each bucket's stacked
@@ -53,11 +59,12 @@ import torch
 
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.core.types import ArchConfig, ParamBucket
-from repro_torch.models import cnn, lm, rwkv6
+from repro_torch.models import cnn, lm, mamba2, rwkv6
 from repro_torch.models import layers as L
 
-#: The cache's dtype (the dense KV cache, RWKV-6's state and carries), as
-#: in the reference (``repro.models.api``).
+#: The cache's dtype (the dense KV cache, RWKV-6's state and carries, the
+#: hybrid's states and KV cache), as in the reference
+#: (``repro.models.api``).
 CACHE_DTYPE = torch.bfloat16
 
 
@@ -114,7 +121,7 @@ def validate_bucket_spec(spec, abstract_params: dict) -> None:
 
 
 def get_ops(cfg: ArchConfig, device="cuda") -> ModelOps:
-    if cfg.family not in ("cnn", "dense", "ssm"):
+    if cfg.family not in ("cnn", "dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not yet ported to repro_torch")
     device = torch.device(device)
@@ -127,6 +134,8 @@ def get_ops(cfg: ArchConfig, device="cuda") -> ModelOps:
         return _lm_ops(cfg, device, dtype)
     if cfg.family == "ssm":
         return _ssm_ops(cfg, device, dtype)
+    if cfg.family == "hybrid":
+        return _hybrid_ops(cfg, device, dtype)
 
     def loss_and_grads(params, batch, tape=None):
         """(loss, metrics, grads) through autograd, or, with ``tape``, the
@@ -173,6 +182,19 @@ def value_and_grad(loss_fn, params):
             grads)
 
 
+def _reverse_bucket_walk(spec, params, grads, tape):
+    """The tape mode of the families that compute the whole gradient at
+    once: ``tape(bucket, params_b, grads_b)`` per bucket in reverse
+    production order; returns the params with every returned bucket
+    replaced."""
+    new_params = dict(params)
+    for bucket in reversed(spec):
+        out = tape(bucket, bucket.view(params), bucket.view(grads))
+        if out is not None:
+            new_params.update(out)
+    return new_params
+
+
 def _lm_ops(cfg: ArchConfig, device: torch.device, dtype) -> ModelOps:
     """The dense LM's ops: params, the training loss and its gradients
     (autograd, then the reverse bucket walk in tape mode), the bf16 KV
@@ -184,12 +206,9 @@ def _lm_ops(cfg: ArchConfig, device: torch.device, dtype) -> ModelOps:
             lambda p: lm.loss_fn(p, batch, cfg, use_kernel), params)
         if tape is None:
             return loss, metrics, grads
-        new_params = dict(params)
-        for bucket in reversed(lm.bucket_spec(cfg)):
-            out = tape(bucket, bucket.view(params), bucket.view(grads))
-            if out is not None:
-                new_params.update(out)
-        return loss, metrics, new_params, grads
+        return (loss, metrics,
+                _reverse_bucket_walk(lm.bucket_spec(cfg), params, grads,
+                                     tape), grads)
 
     def shard_bucket_grads(shard_params, shards, on_bucket, use_kernel=True):
         return lm.loss_and_shard_bucket_grads(
@@ -244,4 +263,41 @@ def _ssm_ops(cfg: ArchConfig, device: torch.device, dtype) -> ModelOps:
         prefill=lambda params, cache, tokens, lengths, cache_len, **kw:
         rwkv6.prefill_step(params, cache, tokens, lengths, cache_len, cfg,
                            **kw),
+    )
+
+
+def _hybrid_ops(cfg: ArchConfig, device: torch.device, dtype) -> ModelOps:
+    """The Zamba2 hybrid's ops: params, the training loss and its gradients
+    (autograd, then the reverse bucket walk in tape mode), the bf16 cache
+    and the one-token ``decode``.  Buckets are the top-level param keys, as
+    the reference's fallback gives them; there is no ``prefill``."""
+    abstract = lambda: mamba2.build_params(cfg, L.ShapeFactory(dtype))
+
+    def loss_and_grads(params, batch, tape=None, use_kernel=True):
+        batch = _to_device(batch, device)
+        loss, metrics, grads = value_and_grad(
+            lambda p: mamba2.loss_fn(p, batch, cfg, use_kernel), params)
+        if tape is None:
+            return loss, metrics, grads
+        return (loss, metrics,
+                _reverse_bucket_walk(default_bucket_spec(abstract()), params,
+                                     grads, tape), grads)
+
+    return ModelOps(
+        cfg=cfg, device=device,
+        init=lambda generator: mamba2.build_params(
+            cfg, L.InitFactory(generator, dtype, device)),
+        abstract_params=abstract,
+        loss=lambda params, batch, use_kernel=True: mamba2.loss_fn(
+            params, _to_device(batch, device), cfg, use_kernel),
+        forward=lambda params, tokens, **kw: mamba2.forward(params, tokens,
+                                                            cfg, **kw),
+        bucket_spec=lambda: default_bucket_spec(abstract()),
+        loss_and_grads=loss_and_grads,
+        init_cache=lambda b, s: mamba2.init_cache(
+            cfg, b, s, L.InitFactory(None, CACHE_DTYPE, device)),
+        abstract_cache=lambda b, s: mamba2.init_cache(
+            cfg, b, s, L.ShapeFactory(CACHE_DTYPE)),
+        decode=lambda params, cache, tokens, cache_len, **kw:
+        mamba2.decode_step(params, cache, tokens, cache_len, cfg, **kw),
     )
